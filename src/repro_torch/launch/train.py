@@ -1,0 +1,77 @@
+"""Training driver of the port: ``python -m repro_torch.launch.train --backend ntx``.
+
+Counterpart of ``repro/launch/train.py``'s ``run_ntx_cnn`` and the ntx
+branch of its CLI: train the paper's small CNN with every step one pass of
+the torch executor — fused region kernels by default, per-node streaming
+matmuls with ``--no-fuse``. Runs on the CUDA device unless ``--device cpu``
+is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from repro_torch.kernels.ops import resolve_device
+from repro_torch.lower import (
+    PlanCache,
+    frequency_band_batches,
+    paper_cnn_graph,
+    train_graph,
+)
+
+
+def run_ntx_cnn(steps: int, batch: int, img: int, *, lr: float = 0.05,
+                momentum: float = 0.9, fuse: bool = True, device=None) -> dict:
+    """Train the paper CNN for ``steps`` steps; print the per-step losses.
+
+    Returns the :func:`~repro_torch.lower.graph.train_graph` result dict.
+    """
+    dev = resolve_device(device)
+    graph = paper_cnn_graph(batch=batch, img=img, lr=lr, momentum=momentum)
+    n_params = sum(int(np.prod(s)) for s in graph.param_shapes().values())
+    print(f"ntx train-step graph: {graph.name}, {len(graph.nodes)} nodes, "
+          f"{n_params} parameters, batch {batch}, img {img}, device {dev}")
+    batch_fn = frequency_band_batches(np.random.RandomState(0), batch, img,
+                                      graph.loss.classes)
+    cache = PlanCache()
+    res = train_graph(graph, steps, batch_fn, params=graph.init_params(seed=0),
+                      fuse=fuse, device=dev, cache=cache)
+    losses = res["losses"]
+    for i, (loss, w) in enumerate(zip(losses, res["walls"])):
+        print(f"step {i:5d} loss={loss:.4f} ({w*1e3:.0f} ms)", flush=True)
+    print(f"plan cache: {len(cache)} plans "
+          f"({cache.hits} hits / {cache.misses} misses over {cache.calls} calls)")
+    fusion = res["fusion"]
+    if fusion is not None:
+        print(f"fusion: {fusion.n_regions} regions + "
+              f"{len(fusion.fallback_steps)} fallback steps per step")
+    else:
+        print("fusion: disabled (--no-fuse) — per-node plan dispatch")
+    print(f"done: {steps} ntx steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return res
+
+
+def _cli(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--backend", default="ntx", choices=["ntx"],
+                    help="ntx: train the paper's small CNN through the torch "
+                         "executor (the only backend of the port so far)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--img", type=int, default=16, help="CNN input image size")
+    ap.add_argument("--no-fuse", action="store_true",
+                    help="disable the region fuser and run per-node plans")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cuda (the default) needs a GPU; cpu runs the plain "
+                         "PyTorch versions of the kernels")
+    args = ap.parse_args(argv)
+    res = run_ntx_cnn(args.steps, args.batch, args.img, fuse=not args.no_fuse,
+                      device=args.device)
+    if len(res["losses"]) >= 3 and not res["losses"][-1] < res["losses"][0]:
+        raise SystemExit("ntx CNN training did not decrease the loss")
+
+
+if __name__ == "__main__":
+    _cli()
