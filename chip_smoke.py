@@ -7,16 +7,24 @@ Run from the repository root with no arguments:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version at the shapes of the
-main path, drives the main path — ``repro_torch.launch.train.run_ntx_cnn``
-on the paper CNN at batch 64, img 32, fused and then ``--no-fuse`` — and
-checks that it went through the kernels. The last lines are the card's
-name and power limit, one ``{"kernels": [...]}`` JSON line, and
-``{"ok": true, "device": {...}}``. Any failed phase makes it exit 1 without
-that last line; with no CUDA device it exits 2.
+main path, drives the main paths and checks that each went through its kernels:
+
+* ``repro_torch.launch.train.run_ntx_cnn`` on the paper CNN at batch 64,
+  img 32, fused and then ``--no-fuse`` (the fused-region and
+  streaming-matmul kernels);
+* ``repro_torch.models.lm.prefill`` of Mamba-2 780M at full width and
+  depth (48 layers, d_model 1536, vocab 50,288) on 2 x 2,048 tokens, in
+  bf16 and in fp32 (the SSD-scan kernel, 48 launches per prefill).
+
+The last lines are the card's name and power limit, one
+``{"kernels": [...]}`` JSON line, and ``{"ok": true, "device": {...}}``.
+Any failed phase makes it exit 1 without that last line; with no CUDA
+device it exits 2.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -32,6 +40,16 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TOL = {"rtol": 1e-5, "atol": 1e-6}
 BATCH, IMG, STEPS = 64, 32, 5
+# Mamba-2 780M prefill: batch x tokens, ids below the unpadded vocab 50,280
+PREFILL_BATCH, PREFILL_SEQ, TOKEN_HIGH = 2, 2048, 50_280
+# SSD gates, relative to max|y|: the band of the JAX kernel sweep (fp32);
+# bf16 y rounds once, one bf16 ulp of max|y| being 2**-8 ~ 3.9e-3
+SSD_TOL = {"float32": 3e-5, "bfloat16": 1e-2}
+# prefill gate, relative to max|logits|: fp32 kernel vs plain SSD
+PREFILL_TOL = {"float32": 1e-4}
+# one bf16 ssm_block, kernel vs plain SSD, relative to max|out|: the two
+# differ by one rounding of y, carried through the gate, norm and w_out
+BLOCK_TOL = 1e-2
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -377,6 +395,381 @@ def main_path(smoke: Smoke, device):
               f"wall {sum(walls) / len(walls) * 1e3:.3f} ms (host clock, synchronised)")
 
 
+def ssd_work(x, la, b, chunk: int) -> tuple[float, float]:
+    """Bytes (x, la, b, c read once, y written once) and FLOPs of one scan.
+
+    FLOPs are what the chunked dual form needs, a multiply-add counted as 2.
+    Per chunk of Q tokens: the causal half of the score block c b^T, once
+    per group (Q(Q+1)/2 * 2N); per head the causal half of (scores * decay)
+    x (Q(Q+1)/2 * (2P + 1)), the inter term c h^T and the state update
+    x^T (w b) (2QPN each), and the element-wise scalings (Q(2P + N) + 2PN).
+    exp is not counted.
+    """
+    bb, h, s, p = x.shape
+    g, n = b.shape[1], b.shape[-1]
+    q = min(chunk, s)
+    tri = q * (q + 1) / 2
+    per_chunk = g * tri * 2 * n + h * (tri * (2 * p + 1) + 4 * q * p * n
+                                       + q * (2 * p + n) + 2 * p * n)
+    nbytes = (2 * x.numel() * x.element_size() + la.numel() * la.element_size()
+              + 2 * b.numel() * b.element_size())
+    return float(nbytes), float(bb * (s // q) * per_chunk)
+
+
+def ssd_inputs(shape, dtype, device, seed: int, *, dt_min: float = 0.0, dt_max: float = 0.1,
+               layout: str = "model"):
+    """SSD operands with the model's decay: la = -dt * A, A = 1..H, dt in [dt_min, dt_max].
+
+    At dt 0.1 and H 48, la reaches -4.8 per step, and exp(cum_i - cum_j)
+    above the diagonal overflows.
+
+    ``layout="model"`` gives the transposed (B,S,H,P) -> (B,H,S,P) views that
+    ``ssm_block`` passes; ``"contiguous"`` the same values, contiguous.
+    """
+    import numpy as np
+    import torch
+
+    bb, h, g, s, p, n = shape
+    rng = np.random.RandomState(seed)
+    x = torch.as_tensor(rng.randn(bb, s, h, p) * 0.5, dtype=torch.float32)
+    dt = torch.as_tensor(dt_min + rng.rand(bb, s, h) * (dt_max - dt_min), dtype=torch.float32)
+    la = -dt * torch.arange(1, h + 1, dtype=torch.float32)
+    b = torch.as_tensor(rng.randn(bb, s, g, n) * 0.3, dtype=torch.float32)
+    c = torch.as_tensor(rng.randn(bb, s, g, n) * 0.3, dtype=torch.float32)
+    x, b, c = (t.to(device, dtype).transpose(1, 2) for t in (x, b, c))
+    la = la.to(device).transpose(1, 2)
+    if layout == "contiguous":
+        x, la, b, c = (t.contiguous() for t in (x, la, b, c))
+    return x, la, b, c
+
+
+def check_ssd(smoke: Smoke, device, full=(2, 48, 1, 2048, 64, 128), chunk: int = 128):
+    """ssd_scan vs its plain chunked version and the sequential ssd_ref."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels.ref import ssd_ref
+
+    bb, h, g, s, p, n = full
+    cases = [  # (label, shape, dtype, layout, dt range, seed)
+        ("full width f32", full, torch.float32, "model", (0.0, 0.1), 0),
+        ("full width bf16", full, torch.bfloat16, "model", (0.0, 0.1), 1),
+        ("full width f32 contiguous", full, torch.float32, "contiguous", (0.0, 0.1), 0),
+        ("G 2 f32", (1, 8, 2, 4 * chunk, p, n), torch.float32, "model", (0.0, 0.1), 2),
+        ("G 2 bf16", (1, 8, 2, 4 * chunk, p, n), torch.bfloat16, "model", (0.0, 0.1), 2),
+        ("strong decay f32", (1, h, 1, 2 * chunk, p, n), torch.float32, "model", (0.1, 0.1), 3),
+        # la to -48 per step: cum_i - cum_j cancels in fp32 in any dual form,
+        # so the kernel is held to the sequential ssd_ref; vs plain is printed
+        ("dt to 1.0 f32", (1, h, 1, 2 * chunk, p, n), torch.float32, "model", (0.0, 1.0), 4),
+    ]
+    worst, outs = 0.0, {}
+    print(f"{'case':>26} {'max|y|':>9} {'kernel-plain':>12} {'kernel-ref':>11} "
+          f"{'plain-ref':>10} {'gate':>8}")
+    for label, shape, dtype, layout, (dt_min, dt_max), seed in cases:
+        x, la, b, c = ssd_inputs(shape, dtype, device, seed, dt_min=dt_min, dt_max=dt_max,
+                                 layout=layout)
+        got = ssd_scan.ssd_scan(x, la, b, c, chunk=chunk)
+        want = ssd_scan.ssd_scan_torch(x, la, b, c, chunk=chunk)
+        seq = ssd_ref(x, la, b, c)
+        torch.cuda.synchronize()
+        scale = float(want.float().abs().max())
+        e_plain, e_ref = max_abs(got, want), max_abs(got, seq)
+        tol = SSD_TOL[str(dtype).split(".")[-1]]
+        vs_plain = dt_max < 1.0
+        outs[label] = got
+        print(f"{label:>26} {scale:>9.4f} {e_plain / scale:>12.2e}{' ' if vs_plain else '*'}"
+              f"{e_ref / scale:>10.2e} {max_abs(want, seq) / scale:>10.2e} {tol:>8.0e}")
+        assert bool(torch.isfinite(got).all()), f"{label}: non-finite output"
+        if vs_plain:
+            worst = max(worst, e_plain)
+            assert e_plain <= tol * scale, f"{label}: kernel vs plain {e_plain / scale:.2e}"
+        assert e_ref <= tol * scale, f"{label}: kernel vs ssd_ref {e_ref / scale:.2e}"
+    print("  * printed, not gated")
+    assert torch.equal(outs["full width f32"], outs["full width f32 contiguous"]), \
+        "strided and contiguous operands gave different bits"
+    again = ssd_scan.ssd_scan(*ssd_inputs(full, torch.float32, device, 0), chunk=chunk)
+    assert torch.equal(again, outs["full width f32"]), "two runs gave different bits"
+
+    x, la, b, c = ssd_inputs(full, torch.bfloat16, device, 1)  # the main path's operands
+    ms = time_ms(lambda: ssd_scan.ssd_scan(x, la, b, c, chunk=chunk))
+    plain = time_ms(lambda: ssd_scan.ssd_scan_torch(x, la, b, c, chunk=chunk), iters=5)
+    nbytes, flops = ssd_work(x, la, b, chunk)
+    bnd, by = bound_ms(nbytes, flops)
+    print(f"ssd_scan at B {bb}, H {h}, S {s}, P {p}, N {n}, chunk {chunk}, bf16: kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.5f} ms ({nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e9:.2f} GFLOP, {by}); no single library call computes SSD")
+    smoke.kernels["ssd_scan"] = {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:82",
+        "launches": None,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": bnd,
+        "bound_by": by,
+        "library_ms": None,
+    }
+
+
+@contextlib.contextmanager
+def routed_ssd(fn):
+    """Route ops.ssd to ``fn`` (ops.ssd looks ssd_scan.ssd_scan up at call time)."""
+    from repro_torch.kernels import ssd_scan
+
+    orig = ssd_scan.ssd_scan
+    ssd_scan.ssd_scan = fn
+    try:
+        yield
+    finally:
+        ssd_scan.ssd_scan = orig
+
+
+def plain_ssd():
+    """Route ops.ssd to the plain chunked version, on the card, for comparison."""
+    from repro_torch.kernels import ssd_scan
+
+    return routed_ssd(ssd_scan.ssd_scan_torch)
+
+
+@contextlib.contextmanager
+def ssd_event_timer(events: list):
+    """Bracket every ssd_scan launch with CUDA events (no synchronisation)."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan
+
+    orig = ssd_scan.ssd_scan
+
+    def timed(*args, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        y = orig(*args, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return y
+
+    with routed_ssd(timed):
+        yield
+
+
+@contextlib.contextmanager
+def ssd_recorder(calls: list):
+    """Keep the operands and output of every ssd_scan launch."""
+    from repro_torch.kernels import ssd_scan
+
+    orig = ssd_scan.ssd_scan
+
+    def recorded(x, la, b, c, *, chunk):
+        y = orig(x, la, b, c, chunk=chunk)
+        calls.append((x, la, b, c, chunk, y))
+        return y
+
+    with routed_ssd(recorded):
+        yield
+
+
+def control_ssd(kind: str):
+    """A lower-precision plain SSD, read through the gates of the prefill.
+
+    ``"scores"``: the c b^T block rounded to bf16, one rounding more than
+    the kernel makes. ``"y_e5m2"``: y rounded to fp8 e5m2 (2 mantissa bits).
+    """
+    import torch
+
+    from repro_torch.kernels import ssd_scan
+
+    def y_e5m2(x, la, b, c, *, chunk):
+        return ssd_scan.ssd_scan_torch(x, la, b, c, chunk=chunk).to(torch.float8_e5m2).to(x.dtype)
+
+    def scores_bf16(x, la, b, c, *, chunk):  # ssd_scan_torch, scores rounded
+        bb, h, s, p = x.shape
+        g, n = b.shape[1], b.shape[3]
+        grp, nc = h // g, s // chunk
+        xf = x.float().reshape(bb, g, grp, nc, chunk, p)
+        laf = la.float().reshape(bb, g, grp, nc, chunk)
+        bf = b.float().reshape(bb, g, nc, chunk, n)
+        cf = c.float().reshape(bb, g, nc, chunk, n)
+        causal = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+        state = torch.zeros((bb, g, grp, p, n), dtype=torch.float32, device=x.device)
+        ys = []
+        for ci in range(nc):
+            xc, bc, cc = xf[:, :, :, ci], bf[:, :, None, ci], cf[:, :, None, ci]
+            cum = torch.cumsum(laf[:, :, :, ci], dim=-1)
+            total = cum[..., -1:]
+            scores = (cc @ bc.transpose(-1, -2)).bfloat16().float()
+            decay = torch.where(causal, torch.exp(cum[..., :, None] - cum[..., None, :]), 0.0)
+            y = (scores * decay) @ xc
+            y = y + torch.exp(cum)[..., None] * (cc @ state.transpose(-1, -2))
+            w = torch.exp(total - cum)[..., None] * bc
+            state = torch.exp(total)[..., None] * state + xc.transpose(-1, -2) @ w
+            ys.append(y)
+        return torch.stack(ys, dim=3).reshape(bb, h, s, p).to(x.dtype)
+
+    return {"scores": scores_bf16, "y_e5m2": y_e5m2}[kind]
+
+
+def _prefill_runs(params, tokens, cfg, ctx, n_ssd: int, warm: int):
+    """One counted prefill, one with the plain SSD, ``warm`` timed ones.
+
+    Every SSD launch of the counted prefill is then held against the plain
+    SSD on its own operands (the layer's real activations), at SSD_TOL.
+    """
+    import torch
+
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models.lm import prefill
+
+    dtype = cfg.dtype
+    torch.cuda.reset_peak_memory_stats()
+    ssd_scan.COUNTER.reset()
+    calls: list = []
+    t0 = time.perf_counter()
+    with ssd_recorder(calls):
+        logits = prefill(params, tokens, cfg, ctx)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = (ssd_scan.COUNTER.launches, ssd_scan.COUNTER.plain_calls)
+    print(f"  {dtype}: ssd_scan launches / plain calls {counts}; first prefill "
+          f"{first * 1e3:.1f} ms; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    assert counts == (n_ssd, 0), f"{dtype}: expected {n_ssd} launches, 0 plain calls"
+    assert logits.shape == (*tokens.shape, cfg.vocab_size) and logits.dtype == torch.float32
+    assert bool(torch.isfinite(logits).all()), f"{dtype}: non-finite logits"
+    tol = SSD_TOL[str(dtype).split(".")[-1]]
+    rel = []
+    for i, (x, la, b, c, chunk, y) in enumerate(calls):
+        want = ssd_scan.ssd_scan_torch(x, la, b, c, chunk=chunk)
+        scale = float(want.float().abs().max())
+        rel.append(max_abs(y, want) / scale)
+        if i == 0:
+            ctl = max_abs(control_ssd("scores")(x, la, b, c, chunk=chunk), want) / scale
+    del calls
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    print(f"  {dtype}: SSD kernel vs plain on each layer's own operands, of max|y|: worst "
+          f"{rel[worst]:.2e} (layer {worst}), median {sorted(rel)[len(rel) // 2]:.2e} "
+          f"(gate {tol:.0e}); control scores in bf16 on layer 0: {ctl:.2e}, "
+          f"{'rejected' if ctl > tol else 'passes'}")
+    assert rel[worst] <= tol, f"{dtype}: layer {worst} SSD kernel vs plain {rel[worst]:.2e}"
+    # the kernel's arithmetic is the same for both dtypes: fp32 must see it
+    assert dtype != torch.float32 or ctl > tol, "the fp32 gate let bf16 scores through"
+    with plain_ssd():
+        plain = prefill(params, tokens, cfg, ctx)
+    torch.cuda.synchronize()
+    walls, ssd_ms = [], []
+    for _ in range(warm):
+        events: list = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ssd_event_timer(events):
+            prefill(params, tokens, cfg, ctx)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        ssd_ms.append(sum(e0.elapsed_time(e1) for e0, e1 in events))
+    wall, dev = sum(walls) / len(walls), sum(ssd_ms) / len(ssd_ms)
+    print(f"  {dtype}: warm prefill wall {wall:.3f} ms (host clock, synchronised, mean "
+          f"of {warm}: {[round(w, 3) for w in walls]}); SSD device time "
+          f"{dev:.3f} ms per prefill ({n_ssd} launches), {dev / wall:.1%} of the wall")
+    return logits, plain, counts[0]
+
+
+def _block_gate(params, tokens, cfg, ctx):
+    """Layer 0's ssm_block at the prefill's own activations, kernel vs plain SSD."""
+    import torch
+
+    from repro_torch.models.blocks import apply_norm
+    from repro_torch.models.lm import embed_inputs
+    from repro_torch.models.ssm import ssm_block
+
+    layer = params["decoder"]["units"][0][0]
+    with torch.inference_mode():
+        h = apply_norm(embed_inputs(params, tokens, cfg), layer["norm1"], cfg.norm_type,
+                       cfg.norm_eps)
+        got = ssm_block(h, layer["ssm"], cfg, chunk=ctx.ssd_chunk)
+        with plain_ssd():
+            want = ssm_block(h, layer["ssm"], cfg, chunk=ctx.ssd_chunk)
+    scale, err = float(want.float().abs().max()), max_abs(got, want)
+    print(f"  {cfg.dtype}: layer-0 ssm_block, kernel vs plain SSD: max|out| {scale:.4f}, "
+          f"max_abs {err:.3e} = {err / scale:.2e} of it (gate {BLOCK_TOL:.0e})")
+    assert bool(torch.isfinite(got).all()), "layer-0 ssm_block: non-finite output"
+    assert err <= BLOCK_TOL * scale, f"layer-0 ssm_block kernel vs plain {err / scale:.2e}"
+
+
+def prefill_path(smoke: Smoke, device, cfg=None, batch: int = PREFILL_BATCH,
+                 seq: int = PREFILL_SEQ, token_high: int = TOKEN_HIGH, warm: int = 3):
+    """lm.prefill of Mamba-2 780M at full width and depth, bf16 then fp32.
+
+    fp32 runs on the bf16 weights widened, so it is also the reference the
+    bf16 runs are measured against. Gates: in both dtypes each of the 48
+    SSD launches against the plain SSD on its own operands (SSD_TOL), and
+    layer 0's ssm_block (BLOCK_TOL in bf16); fp32 logits, kernel vs plain
+    SSD, within 1e-4 of max|logits|; in bf16 the kernel's error against
+    that fp32 prefill no larger than the plain SSD's (1.25x at the max,
+    1.1x in the mean). Lower-precision controls are read through the
+    gates: the fp32 per-layer gate must reject scores rounded to bf16, the
+    ratio gate y rounded to fp8 e5m2 (it is coarse: bf16 scores pass it).
+    bf16
+    kernel and plain differ only in how y's fp32 sums round to bf16; 48
+    layers carry those one-ulp flips to several percent of max|logits|,
+    so their direct difference at the logits is printed, not gated.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.models.lm import init_lm, prefill
+
+    cfg = cfg or get_config("mamba2_780m")
+    ctx = ParallelCtx()
+    tokens = torch.as_tensor(np.random.RandomState(0).randint(0, token_high, (batch, seq)),
+                             device=device)
+    n_ssd = sum(cfg.pattern[i % len(cfg.pattern)][0] == "ssm" for i in range(cfg.n_layers))
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, batch {batch} x {seq} tokens, {n_ssd} SSD layers")
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    print(f"  init_lm(seed=0): {sum(p.numel() for p in params.parameters()):,} parameters, "
+          f"{cfg.dtype}, in {time.perf_counter() - t0:.2f} s")
+    k16, p16, launches = _prefill_runs(params, tokens, cfg, ctx, n_ssd, warm)
+    _block_gate(params, tokens, cfg, ctx)
+    controls = {}
+    for kind in ("scores", "y_e5m2"):
+        with routed_ssd(control_ssd(kind)):
+            controls[kind] = prefill(params, tokens, cfg, ctx)
+    params.to(torch.float32)  # in place: the same weights, widened
+    k32, p32, _ = _prefill_runs(params, tokens, cfg.with_(dtype=torch.float32), ctx, n_ssd, 1)
+    del params
+    scale = float(p32.abs().max())
+    e32 = max_abs(k32, p32)
+    print(f"  float32: kernel vs plain-SSD prefill: max|logits| {scale:.4f}, max_abs "
+          f"{e32:.3e} = {e32 / scale:.2e} of max|logits| (gate {PREFILL_TOL['float32']:.0e})")
+    assert e32 <= PREFILL_TOL["float32"] * scale, f"fp32 prefill kernel vs plain {e32 / scale:.2e}"
+
+    def vs_fp32(logits):
+        e = (logits - p32).abs()
+        return float(e.max()), float(e.mean())
+
+    ep_max, ep_mean = vs_fp32(p16)
+    passes = {}
+    print(f"  bfloat16 vs the fp32 prefill, of max|logits|: plain SSD max "
+          f"{ep_max / scale:.3e} mean {ep_mean / scale:.3e}; kernel vs plain directly "
+          f"{max_abs(k16, p16) / scale:.3e}")
+    for name, logits in (("kernel", k16), *((f"control {k}", v) for k, v in controls.items())):
+        e_max, e_mean = vs_fp32(logits)
+        passes[name] = e_max <= 1.25 * ep_max and e_mean <= 1.1 * ep_mean
+        print(f"    {name:>16}: max {e_max / scale:.3e} ({e_max / ep_max:.3f}x plain), mean "
+              f"{e_mean / scale:.3e} ({e_mean / ep_mean:.4f}x plain): ratio gate "
+              f"{'passes' if passes[name] else 'rejects'}")
+    assert passes["kernel"], \
+        "bf16 prefill through the kernel is further from fp32 than through the plain SSD"
+    assert not passes["control y_e5m2"], "the ratio gate let y in fp8 e5m2 through"
+    smoke.kernels["ssd_scan"]["launches"] = launches
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -394,7 +787,10 @@ def main() -> int:
         smoke.phase("streaming_matmul vs plain", check_streaming, smoke, device)
         smoke.phase("fused region vs plain", check_region, smoke, device)
         smoke.phase("main path", main_path, smoke, device)
-    if len(smoke.kernels) != 2 and "kernels" not in smoke.failures:
+        smoke.phase("ssd_scan vs plain", check_ssd, smoke, device)
+        if "ssd_scan" in smoke.kernels:
+            smoke.phase("prefill path", prefill_path, smoke, device)
+    if len(smoke.kernels) != 3 and "kernels" not in smoke.failures:
         smoke.failures.append("kernels")
     if smoke.failures:
         print(f"chip_smoke FAILED: {smoke.failures}", flush=True)

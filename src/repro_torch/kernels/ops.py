@@ -18,13 +18,17 @@ import torch
 
 
 def strict_fp32() -> None:
-    """Turn TF32 off for matmuls and cuDNN convolutions.
+    """Turn TF32 off for matmuls and cuDNN convolutions, and keep bf16
+    matmuls from reducing in bf16.
 
     The reference numerics are fp32 storage with an fp32 accumulator; TF32
-    keeps a 10-bit mantissa. cuDNN's flag defaults to True.
+    keeps a 10-bit mantissa. cuDNN's flag defaults to True. A bf16 product
+    must sum in fp32 and round once, as ``preferred_element_type=float32``
+    followed by a cast does in the JAX package.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device=None) -> torch.device:
@@ -71,3 +75,15 @@ class LaunchCounter:
     def reset(self) -> None:
         self.launches = 0
         self.plain_calls = 0
+
+
+def ssd(x: torch.Tensor, la: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
+        chunk: int = 128) -> torch.Tensor:
+    """Mamba-2 SSD scan (``repro/kernels/ops.py::ssd`` without ``return_state``).
+
+    x (B, H, S, P), la (B, H, S), b / c (B, G, S, N) -> y (B, H, S, P):
+    the kernel for CUDA tensors, its plain version for CPU tensors.
+    """
+    from repro_torch.kernels import ssd_scan  # looked up at call time
+
+    return ssd_scan.ssd_scan(x, la, b, c, chunk=chunk)

@@ -1,0 +1,86 @@
+"""Shared NN building blocks: the parameter tree, matmul, norms.
+
+Counterpart of ``repro/models/blocks.py``. Parameters live in
+:class:`ParamTree` modules that keep the JAX pytree's names, so a layer
+reads ``p["w_z"]`` as the JAX code does and ``state_dict()`` keys are the
+JAX paths. Matmuls accumulate in fp32 and round once to the activation
+dtype. RoPE and the MLPs come with the attention slice.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class ParamTree(nn.Module):
+    """Named parameters and sub-modules, read as ``p["name"]``.
+
+    Inference only: parameters are created with ``requires_grad=False``.
+    """
+
+    def __init__(self, entries: dict):
+        super().__init__()
+        for k, v in entries.items():
+            if isinstance(v, nn.Module):
+                self.add_module(k, v)
+            else:
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+
+def normal(shape, std: float, gen, device, dtype) -> torch.Tensor:
+    """``(N(0, 1) * std).astype(dtype)`` from ``gen``; uninitialised on ``meta``."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, device=device, dtype=dtype)
+    return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Activation @ weight with fp32 accumulation, output in activation dtype.
+
+    For bf16 on the card this needs
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
+    False`` (set by :func:`repro_torch.kernels.ops.strict_fp32`); for fp32,
+    TF32 off.
+    """
+    return torch.matmul(x, w).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(d: int, device, dtype=torch.float32) -> ParamTree:
+    return ParamTree({"scale": torch.zeros((d,), dtype=dtype, device=device)})  # 1 + scale
+
+
+def rms_norm(x: torch.Tensor, params, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + params["scale"].float())).to(x.dtype)
+
+
+def init_layernorm(d: int, device, dtype=torch.float32) -> ParamTree:
+    return ParamTree({"scale": torch.ones((d,), dtype=dtype, device=device),
+                      "bias": torch.zeros((d,), dtype=dtype, device=device)})
+
+
+def layer_norm(x: torch.Tensor, params, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(x.dtype)
+
+
+def apply_norm(x, params, kind: str, eps: float):
+    return rms_norm(x, params, eps) if kind == "rms" else layer_norm(x, params, eps)
+
+
+def init_norm(d: int, kind: str, device, dtype=torch.float32) -> ParamTree:
+    return init_rmsnorm(d, device, dtype) if kind == "rms" else init_layernorm(d, device, dtype)

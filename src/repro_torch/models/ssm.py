@@ -1,0 +1,118 @@
+"""Mamba-2 (SSD) block — attention-free sequence mixing (``repro/models/ssm.py``).
+
+Follows the Mamba-2 architecture (arXiv:2405.21060): input projections for
+(z, x, B, C, dt); a short depthwise causal conv over x, B and C; the SSD
+scan with scalar-per-head decay A; a D skip; gated RMSNorm; out projection.
+The scan runs through :func:`repro_torch.kernels.ops.ssd`: the
+hand-written kernel on the card, its plain version on the CPU.
+
+bf16 rounds where the JAX block rounds: after every projection, after the
+conv's silu, the dt scale cast before the product, the D-skip term,
+``silu(z)`` in fp32 cast before the gate, and the norm's output.
+The decode step and its cache come with the decode slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.blocks import ParamTree, _dot, init_rmsnorm, normal, rms_norm
+
+_CONV_W = 4
+
+
+def _dims(cfg):
+    d_inner = cfg.ssm_headdim * cfg.n_heads  # == 2 * d_model for mamba2
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    return d_inner, g, n
+
+
+def init_ssm_block(cfg, gen: torch.Generator | None, device, dtype=torch.bfloat16) -> ParamTree:
+    """The JAX block's parameters, same names, shapes and distributions."""
+    d = cfg.d_model
+    d_inner, g, n = _dims(cfg)
+    h = cfg.n_heads
+    std = d**-0.5
+
+    def rnd(shape, s, dt=dtype):
+        return normal(shape, s, gen, device, dt)
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    # dt bias: softplus^-1 of dt log-uniform in [1e-3, 1e-1] (mamba init)
+    if torch.device(device).type == "meta":
+        dt = torch.empty((h,), device=device)
+    else:
+        u = torch.rand((h,), generator=gen, device=device)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    return ParamTree({
+        "w_z": rnd((d, d_inner), std),
+        "w_x": rnd((d, d_inner), std),
+        "w_b": rnd((d, g * n), std),
+        "w_c": rnd((d, g * n), std),
+        "w_dt": rnd((d, h), std),
+        "conv_wx": rnd((_CONV_W, d_inner), 0.1),
+        "conv_bx": zeros((d_inner,)),
+        "conv_wb": rnd((_CONV_W, g * n), 0.1),
+        "conv_bb": zeros((g * n,)),
+        "conv_wc": rnd((_CONV_W, g * n), 0.1),
+        "conv_bc": zeros((g * n,)),
+        "a_log": torch.log(torch.arange(1, h + 1, dtype=torch.float32, device=device)),
+        "dt_bias": dt + torch.log(-torch.expm1(-dt)),  # softplus^-1(dt)
+        "d_skip": torch.ones((h,), dtype=torch.float32, device=device),
+        "norm": init_rmsnorm(d_inner, device),
+        "w_out": rnd((d_inner, d), d_inner**-0.5),
+    })
+
+
+def _project(x, params):
+    z = _dot(x, params["w_z"])
+    xs = _dot(x, params["w_x"])
+    b = _dot(x, params["w_b"])
+    c = _dot(x, params["w_c"])
+    dt = _dot(x, params["w_dt"])
+    return z, xs, b, c, dt
+
+
+def _causal_conv1d(x, w, b):
+    """Depthwise causal conv along S of (B, S, C), fp32 sum, silu, x's dtype."""
+    s = x.shape[1]
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for k in range(w.shape[0]):
+        shifted = F.pad(x, (0, 0, k, 0))[:, :s]
+        out = out + shifted.float() * w[k].float()
+    return F.silu(out + b.float()).to(x.dtype)
+
+
+def ssm_block(x: torch.Tensor, params, cfg, *, chunk: int = 128) -> torch.Tensor:
+    """Full-sequence Mamba-2 block. x: (B, S, D) -> (B, S, D)."""
+    bsz, s, _ = x.shape
+    d_inner, g, n = _dims(cfg)
+    h, p = cfg.n_heads, cfg.ssm_headdim
+
+    z, xs, b, c, dt = _project(x, params)
+    xs = _causal_conv1d(xs, params["conv_wx"], params["conv_bx"])
+    b = _causal_conv1d(b, params["conv_wb"], params["conv_bb"])
+    c = _causal_conv1d(c, params["conv_wc"], params["conv_bc"])
+
+    dt = F.softplus(dt.float() + params["dt_bias"])  # (B, S, H)
+    a = -torch.exp(params["a_log"])  # (H,)
+    la = (dt * a).transpose(1, 2)  # (B, H, S) log-decay <= 0
+
+    xh = xs.reshape(bsz, s, h, p).transpose(1, 2)  # (B, H, S, P)
+    xh = xh * dt.transpose(1, 2)[..., None].to(xh.dtype)  # dt-scaled input
+    bg = b.reshape(bsz, s, g, n).transpose(1, 2)  # (B, G, S, N)
+    cg = c.reshape(bsz, s, g, n).transpose(1, 2)
+
+    y = ops.ssd(xh, la, bg, cg, chunk=min(chunk, s))  # (B, H, S, P)
+    y = y + params["d_skip"][None, :, None, None].to(xh.dtype) * xh
+    y = y.transpose(1, 2).reshape(bsz, s, d_inner)
+
+    y = y * F.silu(z.float()).to(y.dtype)  # gated
+    y = rms_norm(y, params["norm"], cfg.norm_eps)
+    return _dot(y, params["w_out"])

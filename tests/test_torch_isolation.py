@@ -44,7 +44,12 @@ def test_port_imports_no_jax_and_no_repro():
     assert res["leaked"] == []
     for mod in ("repro_torch.kernels.fused", "repro_torch.kernels.streaming",
                 "repro_torch.lower.executors", "repro_torch.launch.train",
-                "repro_torch.core.conv_decomp", "repro_torch.convert"):
+                "repro_torch.core.conv_decomp", "repro_torch.convert",
+                "repro_torch.kernels.ssd_scan", "repro_torch.kernels.ref",
+                "repro_torch.models.config", "repro_torch.models.blocks",
+                "repro_torch.models.ssm", "repro_torch.models.transformer",
+                "repro_torch.models.lm", "repro_torch.configs",
+                "repro_torch.configs.mamba2_780m"):
         assert mod in res["modules"]
 
 

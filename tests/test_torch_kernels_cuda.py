@@ -6,12 +6,19 @@ JAX so that they run on a machine with PyTorch for CUDA alone:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.convert import params_from_jax
-from repro_torch.kernels import fused, streaming
+from repro_torch.kernels import fused, ssd_scan, streaming
+from repro_torch.kernels.ref import ssd_ref
 from repro_torch.lower import (
     MaxPool2dSpec,
     RegionSpec,
@@ -104,3 +111,149 @@ def test_step_fused_matches_unfused(cuda_device):
     assert set(fused_out) == set(unfused)
     for k in fused_out:
         torch.testing.assert_close(fused_out[k], unfused[k], rtol=1e-5, atol=1e-6, msg=k)
+
+
+# (B, H, G, S, P, N, chunk): the JAX kernel sweep's shapes, G 1, 2 and 4
+SSD_CASES = [
+    (2, 4, 2, 256, 32, 32, 64),
+    (1, 2, 1, 128, 64, 128, 128),
+    (1, 4, 4, 192, 16, 32, 64),
+    (1, 1, 1, 64, 8, 16, 32),
+]
+# bf16 output rounds once: one bf16 ulp of max|y| is 2**-8 ~ 3.9e-3
+SSD_TOL = {torch.float32: 3e-5, torch.bfloat16: 1e-2}
+
+
+def _ssd_inputs(bs, h, g, s, p, n, seed, device, dtype=torch.float32, decay=0.5):
+    rng = np.random.RandomState(seed)
+    x = torch.as_tensor(rng.randn(bs, h, s, p) * 0.5, dtype=torch.float32)
+    la = torch.as_tensor(-np.abs(rng.rand(bs, h, s)) * decay, dtype=torch.float32)
+    b = torch.as_tensor(rng.randn(bs, g, s, n) * 0.3, dtype=torch.float32)
+    c = torch.as_tensor(rng.randn(bs, g, s, n) * 0.3, dtype=torch.float32)
+    return (x.to(device, dtype), la.to(device), b.to(device, dtype), c.to(device, dtype))
+
+
+def _rel_err(got, want):
+    scale = float(want.float().abs().max()) + 1e-6
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bs,h,g,s,p,n,chunk", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda_device, bs, h, g, s, p, n, chunk, dtype):
+    x, la, b, c = _ssd_inputs(bs, h, g, s, p, n, s + p, cuda_device, dtype)
+    ssd_scan.COUNTER.reset()
+    got = ssd_scan.ssd_scan(x, la, b, c, chunk=chunk)
+    again = ssd_scan.ssd_scan(x, la, b, c, chunk=chunk)
+    want = ssd_scan.ssd_scan_torch(x, la, b, c, chunk=chunk)
+    seq = ssd_ref(x, la, b, c)
+    torch.cuda.synchronize()
+    assert (ssd_scan.COUNTER.launches, ssd_scan.COUNTER.plain_calls) == (2, 1)
+    assert got.dtype == dtype and got.shape == (bs, h, s, p)
+    assert torch.equal(got, again)  # no atomics: the same bits run to run
+    assert _rel_err(got, want) <= SSD_TOL[dtype]
+    assert _rel_err(got, seq) <= SSD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssd_kernel_reads_transposed_views(cuda_device, dtype):
+    """The (B,S,H,P) -> (B,H,S,P) views that ssm_block passes, no copy."""
+    bs, h, g, s, p, n = 2, 8, 2, 256, 16, 32
+    x, la, b, c = _ssd_inputs(bs, h, g, s, p, n, 3, cuda_device, dtype)
+    xv = x.transpose(1, 2).contiguous().transpose(1, 2)
+    lav = la.transpose(1, 2).contiguous().transpose(1, 2)
+    bv = b.transpose(1, 2).contiguous().transpose(1, 2)
+    cv = c.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not xv.is_contiguous() and not lav.is_contiguous() and not bv.is_contiguous()
+    got = ssd_scan.ssd_scan(xv, lav, bv, cv, chunk=64)
+    want = ssd_scan.ssd_scan(x, la, b, c, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssd_kernel_strong_decay_stays_finite(cuda_device, dtype):
+    """la down to -4.8 per step: exp above the diagonal would overflow."""
+    bs, h, g, s, p, n = 1, 48, 1, 256, 16, 32
+    x, _, b, c = _ssd_inputs(bs, h, g, s, p, n, 5, cuda_device, dtype)
+    a = torch.arange(1, h + 1, dtype=torch.float32, device=cuda_device)
+    la = (-0.1 * a[None, :, None]).expand(bs, h, s).contiguous()
+    got = ssd_scan.ssd_scan(x, la, b, c, chunk=128)
+    want = ssd_scan.ssd_scan_torch(x, la, b, c, chunk=128)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) <= SSD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssd_kernel_dt_to_one_matches_ssd_ref(cuda_device, dtype):
+    """dt up to 1.0 with A up to 48: la to -48 per step, |cum| in the thousands.
+
+    Held to the sequential ssd_ref: cum_i - cum_j cancels in fp32 in every
+    dual form, so the plain chunked version is no yardstick here.
+    """
+    bs, h, g, s, p, n = 1, 48, 1, 256, 16, 32
+    x, _, b, c = _ssd_inputs(bs, h, g, s, p, n, 6, cuda_device, dtype)
+    dt = torch.as_tensor(np.random.RandomState(6).rand(bs, h, s), dtype=torch.float32)
+    a = torch.arange(1, h + 1, dtype=torch.float32)
+    la = (-dt * a[None, :, None]).to(cuda_device)
+    got = ssd_scan.ssd_scan(x, la, b, c, chunk=128)
+    seq = ssd_ref(x, la, b, c)
+    torch.cuda.synchronize()
+    assert float(la.min()) < -40
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, seq) <= SSD_TOL[dtype]
+
+
+_FRESH_PREFILL = """
+import torch
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.convert import lm_params_from_jax
+from repro_torch.kernels.ops import strict_fp32
+from repro_torch.models.config import ParallelCtx
+from repro_torch.models.lm import init_lm, prefill
+
+flag = torch.backends.cuda.matmul
+print("default allow_bf16_reduced_precision_reduction:",
+      flag.allow_bf16_reduced_precision_reduction)
+cfg = reduce_config(get_config("mamba2_780m")).with_(dtype=torch.bfloat16)
+own = init_lm(cfg, seed=0, device="cpu")
+units = own["decoder"]["units"][0]
+tree = {"embed": own["embed"], "final_norm": {"scale": own["final_norm"]["scale"]},
+        "decoder": {"units": [{
+            k: torch.stack([dict(layer.named_parameters())[k] for layer in units])
+            for k, _ in units[0].named_parameters()}], "rem": []}}
+params = lm_params_from_jax(tree, cfg, "cuda")  # no resolve_device on this route
+tokens = torch.randint(0, cfg.vocab_size, (2, 256), device="cuda")
+first = prefill(params, tokens, cfg, ParallelCtx())
+assert not flag.allow_bf16_reduced_precision_reduction and not flag.allow_tf32
+strict_fp32()
+assert torch.equal(first, prefill(params, tokens, cfg, ParallelCtx()))
+"""
+
+
+@pytest.mark.cuda
+def test_prefill_on_converted_params_sums_bf16_in_fp32(cuda_device):
+    """A fresh process, torch's default matmul flags, parameters from
+    lm_params_from_jax: prefill itself turns bf16 reduced-precision
+    reduction off, so its logits are those of a prefill after strict_fp32."""
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = {**os.environ, "PYTHONPATH": f"{src}{os.pathsep}{os.environ.get('PYTHONPATH', '')}"}
+    run = subprocess.run([sys.executable, "-c", textwrap.dedent(_FRESH_PREFILL)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stdout + run.stderr
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_mixed_devices_and_types(cuda_device):
+    x, la, b, c = _ssd_inputs(1, 2, 1, 64, 8, 16, 0, cuda_device)
+    with pytest.raises(ValueError):
+        ssd_scan.ssd_scan(x, la.cpu(), b, c, chunk=32)
+    with pytest.raises(TypeError):
+        ssd_scan.ssd_scan(x.half(), la, b.half(), c.half(), chunk=32)
+    with pytest.raises(TypeError):
+        ssd_scan.ssd_scan(x, la.double(), b, c, chunk=32)
