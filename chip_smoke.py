@@ -14,7 +14,11 @@ main path, drives the main paths and checks that each went through its kernels:
   streaming-matmul kernels);
 * ``repro_torch.models.lm.prefill`` of Mamba-2 780M at full width and
   depth (48 layers, d_model 1536, vocab 50,288) on 2 x 2,048 tokens, in
-  bf16 and in fp32 (the SSD-scan kernel, 48 launches per prefill).
+  bf16 and in fp32 (the SSD-scan kernel, 48 launches per prefill);
+* ``repro_torch.models.lm.prefill`` of Qwen1.5-0.5B at full width and
+  depth (24 attention + MLP layers, d_model 1024, 16 heads of 64, vocab
+  151,936) on 2 x 2,048 tokens, in bf16 and in fp32 (the flash-attention
+  kernel, 24 launches per prefill).
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` JSON line, and ``{"ok": true, "device": {...}}``.
@@ -35,9 +39,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# published H100 SXM peaks: HBM3 bandwidth and fp32 outside the tensor cores
+# published H100 SXM peaks: HBM3 bandwidth; per operand type, fp32 outside
+# the tensor cores and bf16 (dense) on them
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
+FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"rtol": 1e-5, "atol": 1e-6}
 BATCH, IMG, STEPS = 64, 32, 5
 # Mamba-2 780M prefill: batch x tokens, ids below the unpadded vocab 50,280
@@ -50,6 +55,13 @@ PREFILL_TOL = {"float32": 1e-4}
 # one bf16 ssm_block, kernel vs plain SSD, relative to max|out|: the two
 # differ by one rounding of y, carried through the gate, norm and w_out
 BLOCK_TOL = 1e-2
+# flash-attention gates: fp32 elementwise |got - want| <= atol + rtol |want|
+# (the band of tests/kernels/test_flash_attention.py, inputs of 0.3 std);
+# bf16 max|got - want| <= 1e-2 max|want| (o rounds once: at most 2**-8 of it)
+ATTN_F32 = {"atol": 2e-5, "rtol": 1e-3}
+ATTN_BF16 = 1e-2
+# Qwen1.5-0.5B prefill: batch x tokens, ids below the vocab 151,936
+QWEN_BATCH, QWEN_SEQ, QWEN_TOKEN_HIGH = 2, 2048, 151_936
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -69,10 +81,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    """Least time for the work on the card, and which side bounds it."""
+def bound_ms(nbytes: float, flops: float, dtype: str = "float32") -> tuple[float, str]:
+    """Least time for the work on the card, and which side bounds it: the
+    bytes over the HBM rate, the FLOPs over the peak rate of the operands' type."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / FLOP_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -494,10 +507,11 @@ def check_ssd(smoke: Smoke, device, full=(2, 48, 1, 2048, 64, 128), chunk: int =
     ms = time_ms(lambda: ssd_scan.ssd_scan(x, la, b, c, chunk=chunk))
     plain = time_ms(lambda: ssd_scan.ssd_scan_torch(x, la, b, c, chunk=chunk), iters=5)
     nbytes, flops = ssd_work(x, la, b, chunk)
-    bnd, by = bound_ms(nbytes, flops)
+    bnd, by = bound_ms(nbytes, flops, "bfloat16")
     print(f"ssd_scan at B {bb}, H {h}, S {s}, P {p}, N {n}, chunk {chunk}, bf16: kernel "
           f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.5f} ms ({nbytes / 1e6:.2f} MB, "
-          f"{flops / 1e9:.2f} GFLOP, {by}); no single library call computes SSD")
+          f"{flops / 1e9:.2f} GFLOP, {by}; at the fp32 rate the kernel computes in "
+          f"{bound_ms(nbytes, flops)[0]:.5f} ms); no single library call computes SSD")
     smoke.kernels["ssd_scan"] = {
         "name": "ssd_scan",
         "route": "cuda",
@@ -514,59 +528,57 @@ def check_ssd(smoke: Smoke, device, full=(2, 48, 1, 2048, 64, 128), chunk: int =
 
 
 @contextlib.contextmanager
-def routed_ssd(fn):
-    """Route ops.ssd to ``fn`` (ops.ssd looks ssd_scan.ssd_scan up at call time)."""
-    from repro_torch.kernels import ssd_scan
+def routed(mod, fn):
+    """Route a kernel module's wrapper to ``fn``.
 
-    orig = ssd_scan.ssd_scan
-    ssd_scan.ssd_scan = fn
+    The wrapper has the module's counter name (``ssd_scan.ssd_scan``,
+    ``flash_attention.flash_attention``); ``ops`` looks it up at call time.
+    """
+    name = mod.COUNTER.name
+    orig = getattr(mod, name)
+    setattr(mod, name, fn)
     try:
         yield
     finally:
-        ssd_scan.ssd_scan = orig
+        setattr(mod, name, orig)
 
 
-def plain_ssd():
-    """Route ops.ssd to the plain chunked version, on the card, for comparison."""
-    from repro_torch.kernels import ssd_scan
-
-    return routed_ssd(ssd_scan.ssd_scan_torch)
+def plain_route(mod):
+    """Route a kernel module's wrapper to its plain version (``<wrapper>_torch``),
+    on the card, for comparison."""
+    return routed(mod, getattr(mod, f"{mod.COUNTER.name}_torch"))
 
 
 @contextlib.contextmanager
-def ssd_event_timer(events: list):
-    """Bracket every ssd_scan launch with CUDA events (no synchronisation)."""
+def event_timer(mod, events: list):
+    """Bracket every launch of a kernel module's wrapper with CUDA events (no synchronisation)."""
     import torch
 
-    from repro_torch.kernels import ssd_scan
-
-    orig = ssd_scan.ssd_scan
+    orig = getattr(mod, mod.COUNTER.name)
 
     def timed(*args, **kw):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        y = orig(*args, **kw)
+        out = orig(*args, **kw)
         e1.record()
         events.append((e0, e1))
-        return y
+        return out
 
-    with routed_ssd(timed):
+    with routed(mod, timed):
         yield
 
 
 @contextlib.contextmanager
-def ssd_recorder(calls: list):
-    """Keep the operands and output of every ssd_scan launch."""
-    from repro_torch.kernels import ssd_scan
+def recorder(mod, calls: list):
+    """Keep the operands, keywords and output of every launch of a kernel module's wrapper."""
+    orig = getattr(mod, mod.COUNTER.name)
 
-    orig = ssd_scan.ssd_scan
+    def recorded(*args, **kw):
+        out = orig(*args, **kw)
+        calls.append((args, kw, out))
+        return out
 
-    def recorded(x, la, b, c, *, chunk):
-        y = orig(x, la, b, c, chunk=chunk)
-        calls.append((x, la, b, c, chunk, y))
-        return y
-
-    with routed_ssd(recorded):
+    with routed(mod, recorded):
         yield
 
 
@@ -610,42 +622,115 @@ def control_ssd(kind: str):
     return {"scores": scores_bf16, "y_e5m2": y_e5m2}[kind]
 
 
-def _prefill_runs(params, tokens, cfg, ctx, n_ssd: int, warm: int):
-    """One counted prefill, one with the plain SSD, ``warm`` timed ones.
+def _prefill_runs(params, tokens, cfg, ctx, mod, n_launch: int, warm: int, launch_gate):
+    """One counted prefill, one through the plain version, ``warm`` timed ones.
 
-    Every SSD launch of the counted prefill is then held against the plain
-    SSD on its own operands (the layer's real activations), at SSD_TOL.
+    ``mod`` is the kernel module of the path (its wrapper is counted,
+    recorded, timed and routed to its plain version). Every launch of the
+    counted prefill is then held against the plain version on its own
+    operands (the layer's real activations) by ``launch_gate(calls, dtype)``.
     """
     import torch
 
-    from repro_torch.kernels import ssd_scan
     from repro_torch.models.lm import prefill
 
-    dtype = cfg.dtype
+    dtype, name = cfg.dtype, mod.COUNTER.name
     torch.cuda.reset_peak_memory_stats()
-    ssd_scan.COUNTER.reset()
+    mod.COUNTER.reset()
     calls: list = []
     t0 = time.perf_counter()
-    with ssd_recorder(calls):
+    with recorder(mod, calls):
         logits = prefill(params, tokens, cfg, ctx)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
-    counts = (ssd_scan.COUNTER.launches, ssd_scan.COUNTER.plain_calls)
-    print(f"  {dtype}: ssd_scan launches / plain calls {counts}; first prefill "
+    counts = (mod.COUNTER.launches, mod.COUNTER.plain_calls)
+    print(f"  {dtype}: {name} launches / plain calls {counts}; first prefill "
           f"{first * 1e3:.1f} ms; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    assert counts == (n_ssd, 0), f"{dtype}: expected {n_ssd} launches, 0 plain calls"
+    assert counts == (n_launch, 0), f"{dtype}: expected {n_launch} launches, 0 plain calls"
     assert logits.shape == (*tokens.shape, cfg.vocab_size) and logits.dtype == torch.float32
     assert bool(torch.isfinite(logits).all()), f"{dtype}: non-finite logits"
+    launch_gate(calls, dtype)
+    del calls
+    with plain_route(mod):
+        plain = prefill(params, tokens, cfg, ctx)
+    torch.cuda.synchronize()
+    walls, dev_ms = [], []
+    for _ in range(warm):
+        events: list = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with event_timer(mod, events):
+            prefill(params, tokens, cfg, ctx)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(sum(e0.elapsed_time(e1) for e0, e1 in events))
+    wall, dev = sum(walls) / len(walls), sum(dev_ms) / len(dev_ms)
+    print(f"  {dtype}: warm prefill wall {wall:.3f} ms (host clock, synchronised, mean "
+          f"of {warm}: {[round(w, 3) for w in walls]}); {name} device time "
+          f"{dev:.3f} ms per prefill ({n_launch} launches), {dev / wall:.1%} of the wall")
+    return logits, plain, counts[0], wall
+
+
+def profile_prefill(params, tokens, cfg, ctx, warm_wall_ms: float):
+    """Device time of one warm prefill by kernel and by kind, from torch.profiler.
+
+    Kinds: the port's kernels (``attn_kernel``, ``ssd_kernel``), matrix
+    products (cuBLAS), and everything else (element-wise passes, reductions,
+    copies). The device's idle share is 1 - (sum of kernel times) / the
+    warm wall measured without the profiler.
+    """
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.lm import prefill
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill(params, tokens, cfg, ctx)
+        torch.cuda.synchronize()
+    # device-side events only: a CPU op's self device time repeats its kernels'
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    total = sum(ms for _, ms, _ in rows)
+    if not rows:
+        print(f"  {cfg.dtype}: the profiler saw no device time")
+        return
+
+    def kind(name):
+        if "attn_kernel" in name or "ssd_kernel" in name:
+            return "port kernel"
+        if any(t in name.lower() for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+            return "matmul (cuBLAS)"
+        return "other (element-wise, reductions, copies)"
+
+    kinds: dict[str, float] = {}
+    for name, ms, _ in rows:
+        kinds[kind(name)] = kinds.get(kind(name), 0.0) + ms
+    print(f"  {cfg.dtype}: profiled prefill, device time {total:.3f} ms in "
+          f"{sum(c for *_, c in rows)} kernel launches; idle share of the {warm_wall_ms:.3f} ms "
+          f"warm wall {1 - total / warm_wall_ms:.1%}")
+    for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        print(f"    {k:>42}: {ms:9.3f} ms ({ms / total:.1%})")
+    for name, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
+        print(f"    {ms:9.3f} ms {count:>5}x  {name[:90]}")
+
+
+def _ssd_launch_gate(calls, dtype):
+    """Each SSD launch vs the plain SSD at SSD_TOL; bf16 scores must fail in fp32."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan
+
     tol = SSD_TOL[str(dtype).split(".")[-1]]
     rel = []
-    for i, (x, la, b, c, chunk, y) in enumerate(calls):
-        want = ssd_scan.ssd_scan_torch(x, la, b, c, chunk=chunk)
+    for i, (args, kw, y) in enumerate(calls):
+        want = ssd_scan.ssd_scan_torch(*args, **kw)
         scale = float(want.float().abs().max())
         rel.append(max_abs(y, want) / scale)
         if i == 0:
-            ctl = max_abs(control_ssd("scores")(x, la, b, c, chunk=chunk), want) / scale
-    del calls
+            ctl = max_abs(control_ssd("scores")(*args, **kw), want) / scale
     worst = max(range(len(rel)), key=rel.__getitem__)
     print(f"  {dtype}: SSD kernel vs plain on each layer's own operands, of max|y|: worst "
           f"{rel[worst]:.2e} (layer {worst}), median {sorted(rel)[len(rel) // 2]:.2e} "
@@ -654,30 +739,13 @@ def _prefill_runs(params, tokens, cfg, ctx, n_ssd: int, warm: int):
     assert rel[worst] <= tol, f"{dtype}: layer {worst} SSD kernel vs plain {rel[worst]:.2e}"
     # the kernel's arithmetic is the same for both dtypes: fp32 must see it
     assert dtype != torch.float32 or ctl > tol, "the fp32 gate let bf16 scores through"
-    with plain_ssd():
-        plain = prefill(params, tokens, cfg, ctx)
-    torch.cuda.synchronize()
-    walls, ssd_ms = [], []
-    for _ in range(warm):
-        events: list = []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with ssd_event_timer(events):
-            prefill(params, tokens, cfg, ctx)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        ssd_ms.append(sum(e0.elapsed_time(e1) for e0, e1 in events))
-    wall, dev = sum(walls) / len(walls), sum(ssd_ms) / len(ssd_ms)
-    print(f"  {dtype}: warm prefill wall {wall:.3f} ms (host clock, synchronised, mean "
-          f"of {warm}: {[round(w, 3) for w in walls]}); SSD device time "
-          f"{dev:.3f} ms per prefill ({n_ssd} launches), {dev / wall:.1%} of the wall")
-    return logits, plain, counts[0]
 
 
 def _block_gate(params, tokens, cfg, ctx):
     """Layer 0's ssm_block at the prefill's own activations, kernel vs plain SSD."""
     import torch
 
+    from repro_torch.kernels import ssd_scan
     from repro_torch.models.blocks import apply_norm
     from repro_torch.models.lm import embed_inputs
     from repro_torch.models.ssm import ssm_block
@@ -687,7 +755,7 @@ def _block_gate(params, tokens, cfg, ctx):
         h = apply_norm(embed_inputs(params, tokens, cfg), layer["norm1"], cfg.norm_type,
                        cfg.norm_eps)
         got = ssm_block(h, layer["ssm"], cfg, chunk=ctx.ssd_chunk)
-        with plain_ssd():
+        with plain_route(ssd_scan):
             want = ssm_block(h, layer["ssm"], cfg, chunk=ctx.ssd_chunk)
     scale, err = float(want.float().abs().max()), max_abs(got, want)
     print(f"  {cfg.dtype}: layer-0 ssm_block, kernel vs plain SSD: max|out| {scale:.4f}, "
@@ -718,6 +786,7 @@ def prefill_path(smoke: Smoke, device, cfg=None, batch: int = PREFILL_BATCH,
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan
     from repro_torch.models.config import ParallelCtx
     from repro_torch.models.lm import init_lm, prefill
 
@@ -733,14 +802,17 @@ def prefill_path(smoke: Smoke, device, cfg=None, batch: int = PREFILL_BATCH,
     torch.cuda.synchronize()
     print(f"  init_lm(seed=0): {sum(p.numel() for p in params.parameters()):,} parameters, "
           f"{cfg.dtype}, in {time.perf_counter() - t0:.2f} s")
-    k16, p16, launches = _prefill_runs(params, tokens, cfg, ctx, n_ssd, warm)
+    k16, p16, launches, wall = _prefill_runs(params, tokens, cfg, ctx, ssd_scan, n_ssd, warm,
+                                             _ssd_launch_gate)
+    profile_prefill(params, tokens, cfg, ctx, wall)
     _block_gate(params, tokens, cfg, ctx)
     controls = {}
     for kind in ("scores", "y_e5m2"):
-        with routed_ssd(control_ssd(kind)):
+        with routed(ssd_scan, control_ssd(kind)):
             controls[kind] = prefill(params, tokens, cfg, ctx)
     params.to(torch.float32)  # in place: the same weights, widened
-    k32, p32, _ = _prefill_runs(params, tokens, cfg.with_(dtype=torch.float32), ctx, n_ssd, 1)
+    k32, p32, _, _ = _prefill_runs(params, tokens, cfg.with_(dtype=torch.float32), ctx,
+                                   ssd_scan, n_ssd, 1, _ssd_launch_gate)
     del params
     scale = float(p32.abs().max())
     e32 = max_abs(k32, p32)
@@ -770,6 +842,322 @@ def prefill_path(smoke: Smoke, device, cfg=None, batch: int = PREFILL_BATCH,
     torch.cuda.empty_cache()
 
 
+def attn_gate(got, want) -> float:
+    """``got`` against ``want`` in units of the attention gate: at most 1 passes.
+
+    fp32: elementwise |got - want| <= atol + rtol |want| (ATTN_F32); bf16:
+    max|got - want| <= ATTN_BF16 max|want|.
+    """
+    import torch
+
+    d = (got.double() - want.double()).abs()
+    if want.dtype == torch.float32:
+        return float((d / (ATTN_F32["atol"] + ATTN_F32["rtol"] * want.double().abs())).max())
+    return float(d.max()) / (ATTN_BF16 * float(want.double().abs().max()))
+
+
+# lower-precision controls read through the attention gates of each dtype;
+# every gate must reject each of them
+CONTROLS = {"float32": ("qk_bf16", "p_bf16"), "bfloat16": ("o_e5m2",)}
+
+
+def _controls(ctl: dict) -> str:
+    return ", ".join(f"{k} {u:.3f} ({'rejected' if u > 1 else 'passes'})" for k, u in ctl.items())
+
+
+def control_attention(kind: str):
+    """A lower-precision plain attention, read through the attention gates.
+
+    ``"qk_bf16"``: q and k rounded to bf16 before the scores (what a bf16
+    tensor-core score product would do to fp32 operands); ``"o_e5m2"``: o
+    rounded to fp8 e5m2 (2 mantissa bits); ``"p_bf16"``: p rounded to bf16
+    before the p v product, l summed from the fp32 p (what a ``wgmma`` p v
+    product would do), as one dense softmax per row.
+    """
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    def qk_bf16(q, k, v, **kw):
+        return fa.flash_attention_torch(q.bfloat16().to(q.dtype), k.bfloat16().to(k.dtype), v,
+                                        **kw)
+
+    def o_e5m2(q, k, v, **kw):
+        return fa.flash_attention_torch(q, k, v, **kw).to(torch.float8_e5m2).to(q.dtype)
+
+    def p_bf16(q, k, v, *, causal=True, window=None, sm_scale=None):
+        b, hq, sq, d = q.shape
+        hkv, skv = k.shape[1], k.shape[2]
+        scale = d**-0.5 if sm_scale is None else sm_scale
+        s = q.float().reshape(b, hkv, hq // hkv, sq, d) @ k.float()[:, :, None].transpose(-1, -2)
+        i = torch.arange(sq, device=q.device)[:, None]
+        j = torch.arange(skv, device=q.device)[None, :]
+        mask = (j <= i) if causal else torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+        if window is not None:
+            mask &= j > i - window
+        s = (s * scale).masked_fill(~mask, float("-inf"))
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True).clamp_min(fa.NEG_INF))
+        l = p.sum(dim=-1, keepdim=True)
+        o = (p.bfloat16().float() @ v.float()[:, :, None]) / torch.where(l == 0, 1.0, l)
+        return o.reshape(b, hq, sq, d).to(q.dtype)
+
+    return {"qk_bf16": qk_bf16, "o_e5m2": o_e5m2, "p_bf16": p_bf16}[kind]
+
+
+def attention_work(q, k, *, causal: bool, window) -> tuple[float, float]:
+    """Bytes (q, k, v read once, o written once) and FLOPs of one attention call.
+
+    FLOPs are 4 D per visible (query, key) pair: the q . k and p v
+    multiply-adds, counted as 2 each; the softmax is not counted.
+    """
+    import numpy as np
+
+    bb, hq, sq, d = q.shape
+    skv = k.shape[2]
+    i = np.arange(sq)
+    hi = np.minimum(skv, i + 1) if causal else np.full(sq, skv)
+    lo = np.maximum(0, i - window + 1) if window is not None else np.zeros(sq, np.int64)
+    pairs = float(np.maximum(0, hi - lo).sum()) * bb * hq
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return float(nbytes), 4.0 * d * pairs
+
+
+def attention_inputs(b, hq, hkv, sq, skv, d, dtype, device, seed: int, *,
+                     layout: str = "strided"):
+    """q, k, v of 0.3 std from numpy.
+
+    ``layout="strided"`` gives (B, S, H, D) -> (B, H, S, D) transposed views,
+    as ``attention_block`` passes v; ``"contiguous"`` the same values,
+    contiguous.
+    """
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.as_tensor(rng.randn(b, s, h, d) * 0.3, dtype=torch.float32)
+               .to(device, dtype).transpose(1, 2)
+               for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
+    if layout == "contiguous":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    return q, k, v
+
+
+def check_attention(smoke: Smoke, device, seq: int = QWEN_SEQ):
+    """flash_attention vs its plain version and the dense attention_ref."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (label, (B, Hq, Hkv, Sq, Skv, D), window, dtype, seed)
+        ("qwen prefill f32", (2, 16, 16, seq, seq, 64), None, f32, 0),
+        ("qwen prefill bf16", (2, 16, 16, seq, seq, 64), None, bf16, 1),
+        ("GQA 32/8 D 128 f32", (1, 32, 8, seq, seq, 128), None, f32, 2),
+        ("GQA 32/8 D 128 bf16", (1, 32, 8, seq, seq, 128), None, bf16, 2),
+        ("MQA 10/1 D 256 window f32", (1, 10, 1, 2 * seq, 2 * seq, 256), seq, f32, 3),
+        # plain: KV blocks 512 + 88; kernel: tiles 9 x 64 + 24, in q and in kv
+        ("KV tail 600 f32", (2, 16, 16, 600, 600, 64), None, f32, 4),
+        ("no visible key f32", (1, 4, 2, 256, 64, 64), 32, f32, 5),
+    ]
+    worst, outs = 0.0, {}
+    print(f"{'case':>26} {'max|o|':>8} {'kernel-plain':>12} {'kernel-ref':>11} "
+          f"{'plain-ref':>10}  (in units of the gate)")
+    for label, shape, window, dtype, seed in cases:
+        q, k, v = attention_inputs(*shape, dtype, device, seed)
+        kw = {"causal": True, "window": window}
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_torch(q, k, v, **kw)
+        dense = attention_ref(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        e_plain, e_ref = attn_gate(got, want), attn_gate(got, dense)
+        outs[label] = got
+        worst = max(worst, max_abs(got, want))
+        print(f"{label:>26} {float(want.float().abs().max()):>8.4f} {e_plain:>12.3f} "
+              f"{e_ref:>11.3f} {attn_gate(want, dense):>10.3f}")
+        assert bool(torch.isfinite(got).all()), f"{label}: non-finite output"
+        assert got.dtype == dtype and got.shape == q.shape, f"{label}: {got.dtype} {got.shape}"
+        assert e_plain <= 1 and e_ref <= 1, f"{label}: kernel vs plain {e_plain:.3f}, vs ref {e_ref:.3f} of the gate"
+    none = outs["no visible key f32"]
+    assert not bool(none[:, :, 95:].any()), "rows with no visible key are not exactly 0"
+    assert bool((none[:, :, :95].abs().amax(dim=-1) > 0).all())
+    print("  rows >= 95 with no visible key: exactly 0")
+
+    q, k, v = attention_inputs(2, 16, 16, seq, seq, 64, f32, device, 0, layout="contiguous")
+    same = fa.flash_attention(q, k, v)
+    again = fa.flash_attention(*attention_inputs(2, 16, 16, seq, seq, 64, f32, device, 0))
+    assert torch.equal(same, outs["qwen prefill f32"]), \
+        "strided and contiguous operands gave different bits"
+    assert torch.equal(again, outs["qwen prefill f32"]), "two runs gave different bits"
+    print("  strided == contiguous and run == run: identical bits")
+
+    for label, kind in (("qwen prefill f32", "qk_bf16"), ("qwen prefill f32", "p_bf16"),
+                        ("qwen prefill bf16", "o_e5m2")):
+        dtype = f32 if "f32" in label else bf16
+        q, k, v = attention_inputs(2, 16, 16, seq, seq, 64, dtype, device, 0 if dtype == f32 else 1)
+        want = fa.flash_attention_torch(q, k, v)
+        ctl = attn_gate(control_attention(kind)(q, k, v), want)
+        print(f"  control {kind} on {label}: {ctl:.3f} of the gate, "
+              f"{'rejected' if ctl > 1 else 'passes'}")
+        assert ctl > 1, f"the {dtype} gate let the {kind} control through"
+
+    times = {}
+    for dtype in (f32, bf16):
+        q, k, v = attention_inputs(2, 16, 16, seq, seq, 64, dtype, device, 1)
+        times[dtype] = (
+            time_ms(lambda: fa.flash_attention(q, k, v)),
+            time_ms(lambda: fa.flash_attention_torch(q, k, v), iters=5),
+            time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                           enable_gqa=False)),
+        )
+        nbytes, flops = attention_work(q, k, causal=True, window=None)
+        bnd, by = bound_ms(nbytes, flops, str(dtype).split(".")[-1])
+        ms, plain, lib = times[dtype]
+        print(f"flash_attention at B 2, H 16, S {seq}, D 64, causal, {dtype}: kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound {bnd:.5f} ms "
+              f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP, {by}; at the fp32 rate the "
+              f"kernel computes in {bound_ms(nbytes, flops)[0]:.5f} ms)")
+    ms, plain, lib = times[bf16]
+    smoke.kernels["flash_attention"] = {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:113",
+        "launches": None,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": bnd,
+        "bound_by": by,
+        "library_ms": lib,
+    }
+
+
+def _attn_launch_gate(calls, dtype):
+    """Each attention launch vs the plain version; a control on layer 0 must fail."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    kinds = CONTROLS[str(dtype).split(".")[-1]]
+    units, ctl = [], {}
+    for i, (args, kw, o) in enumerate(calls):
+        want = fa.flash_attention_torch(*args, **kw)
+        units.append(attn_gate(o, want))
+        if i == 0:
+            ctl = {kind: attn_gate(control_attention(kind)(*args, **kw), want) for kind in kinds}
+    worst = max(range(len(units)), key=units.__getitem__)
+    print(f"  {dtype}: attention kernel vs plain on each layer's own operands, in units of "
+          f"the gate: worst {units[worst]:.3f} (layer {worst}), median "
+          f"{sorted(units)[len(units) // 2]:.3f}; controls on layer 0: {_controls(ctl)}")
+    assert units[worst] <= 1, f"{dtype}: layer {worst} attention kernel vs plain {units[worst]:.3f}"
+    for kind, u in ctl.items():
+        assert u > 1, f"the {dtype} per-layer gate let the {kind} control through"
+
+
+def _attn_block_gate(params, tokens, cfg):
+    """Layer 0's attention_block at the prefill's own activations, kernel vs plain."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import attention_block
+    from repro_torch.models.blocks import apply_norm
+    from repro_torch.models.lm import embed_inputs
+
+    layer = params["decoder"]["units"][0][0]
+    kinds = CONTROLS[str(cfg.dtype).split(".")[-1]]
+    with torch.inference_mode():
+        h = apply_norm(embed_inputs(params, tokens, cfg), layer["norm1"], cfg.norm_type,
+                       cfg.norm_eps)
+
+        def block():
+            return attention_block(h, layer["attn"], cfg)
+
+        got = block()
+        with plain_route(fa):
+            want = block()
+        ctl = {}
+        for kind in kinds:
+            with routed(fa, control_attention(kind)):
+                ctl[kind] = attn_gate(block(), want)
+    err = attn_gate(got, want)
+    print(f"  {cfg.dtype}: layer-0 attention_block, kernel vs plain: max|out| "
+          f"{float(want.float().abs().max()):.4f}, max_abs {max_abs(got, want):.3e} = "
+          f"{err:.3f} of the gate; controls {_controls(ctl)}")
+    assert bool(torch.isfinite(got).all()), "layer-0 attention_block: non-finite output"
+    assert err <= 1, f"layer-0 attention_block kernel vs plain {err:.3f} of the gate"
+    for kind, u in ctl.items():
+        assert u > 1, f"the layer-0 block gate let the {kind} control through"
+
+
+def qwen_prefill_path(smoke: Smoke, device, cfg=None, batch: int = QWEN_BATCH,
+                      seq: int = QWEN_SEQ, token_high: int = QWEN_TOKEN_HIGH, warm: int = 3):
+    """lm.prefill of Qwen1.5-0.5B at full width and depth, bf16 then fp32.
+
+    fp32 runs on the bf16 weights widened. Gates: in both dtypes each of the
+    24 attention launches against the plain version on its own operands,
+    and layer 0's attention_block (ATTN_F32 / ATTN_BF16); fp32 logits,
+    kernel vs plain attention, within 1e-4 of max|logits|. A control is
+    read through each gate and must fail: q and k rounded to bf16 (fp32
+    gates), p rounded to bf16 before p v (fp32 gates), o rounded to fp8
+    e5m2 (bf16 gates).
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.models.lm import init_lm, prefill
+
+    cfg = cfg or get_config("qwen1_5_0_5b")
+    ctx = ParallelCtx()
+    tokens = torch.as_tensor(np.random.RandomState(0).randint(0, token_high, (batch, seq)),
+                             device=device)
+    n_attn = sum(cfg.pattern[i % len(cfg.pattern)][0] in ("attn", "swa")
+                 for i in range(cfg.n_layers))
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"x {cfg.head_dim}, vocab {cfg.vocab_size}, batch {batch} x {seq} tokens, "
+          f"{n_attn} attention layers")
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    print(f"  init_lm(seed=0): {sum(p.numel() for p in params.parameters()):,} parameters, "
+          f"{cfg.dtype}, in {time.perf_counter() - t0:.2f} s")
+    k16, p16, launches, wall = _prefill_runs(params, tokens, cfg, ctx, fa, n_attn, warm,
+                                             _attn_launch_gate)
+    profile_prefill(params, tokens, cfg, ctx, wall)
+    _attn_block_gate(params, tokens, cfg)
+    params.to(torch.float32)  # in place: the same weights, widened
+    cfg32 = cfg.with_(dtype=torch.float32)
+    k32, p32, _, wall = _prefill_runs(params, tokens, cfg32, ctx, fa, n_attn, 1,
+                                      _attn_launch_gate)
+    profile_prefill(params, tokens, cfg32, ctx, wall)
+    _attn_block_gate(params, tokens, cfg32)
+    scale = float(p32.abs().max())
+    tol = PREFILL_TOL["float32"]
+    ctl = {}
+    for kind in CONTROLS["float32"]:
+        with routed(fa, control_attention(kind)):
+            ctl[kind] = max_abs(prefill(params, tokens, cfg32, ctx), p32) / (tol * scale)
+    del params
+    e32 = max_abs(k32, p32)
+    print(f"  float32: kernel vs plain-attention prefill: max|logits| {scale:.4f}, max_abs "
+          f"{e32:.3e} = {e32 / scale:.2e} of max|logits| (gate {tol:.0e}); controls, in "
+          f"units of the gate: {_controls(ctl)}")
+    assert e32 <= tol * scale, f"fp32 prefill kernel vs plain {e32 / scale:.2e}"
+    for kind, u in ctl.items():
+        assert u > 1, f"the fp32 logits gate let the {kind} control through"
+    print(f"  bfloat16 vs the fp32 prefill, of max|logits| (printed, not gated): kernel max "
+          f"{max_abs(k16, p32) / scale:.3e} mean {float((k16 - p32).abs().mean()) / scale:.3e}; "
+          f"plain attention max {max_abs(p16, p32) / scale:.3e} mean "
+          f"{float((p16 - p32).abs().mean()) / scale:.3e}; kernel vs plain directly "
+          f"{max_abs(k16, p16) / scale:.3e}")
+    smoke.kernels["flash_attention"]["launches"] = launches
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -790,7 +1178,10 @@ def main() -> int:
         smoke.phase("ssd_scan vs plain", check_ssd, smoke, device)
         if "ssd_scan" in smoke.kernels:
             smoke.phase("prefill path", prefill_path, smoke, device)
-    if len(smoke.kernels) != 3 and "kernels" not in smoke.failures:
+        smoke.phase("flash_attention vs plain", check_attention, smoke, device)
+        if "flash_attention" in smoke.kernels:
+            smoke.phase("qwen prefill path", qwen_prefill_path, smoke, device)
+    if len(smoke.kernels) != 4 and "kernels" not in smoke.failures:
         smoke.failures.append("kernels")
     if smoke.failures:
         print(f"chip_smoke FAILED: {smoke.failures}", flush=True)

@@ -26,7 +26,7 @@ ARCHS = (
     "qwen3_moe_235b_a22b",
     "mamba2_780m",
 )
-PORTED = ("mamba2_780m",)
+PORTED = ("mamba2_780m", "qwen1_5_0_5b")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -35,8 +35,8 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; available: {ARCHS}")
     if name not in PORTED:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP A5: attention, MLP and MoE "
-            f"layers with the flash-attention kernel B3); ported: {PORTED}"
+            f"arch {name!r} is not ported yet (ROADMAP A5: its config module, and MoE or "
+            f"RG-LRU layers where it has them); ported: {PORTED}"
         )
     return importlib.import_module(f"repro_torch.configs.{name}").CONFIG
 
@@ -44,12 +44,13 @@ def get_config(name: str) -> ModelConfig:
 def reduce_config(cfg: ModelConfig) -> ModelConfig:
     """Family-preserving smoke-scale shrink (same pattern, tiny dims).
 
-    The JAX package's shrink for the ported (SSM) family; the MoE, RG-LRU
-    and sliding-window branches come with the slices that port those layers.
+    The JAX package's shrink for the ported families (attention, sliding
+    window, SSM); the MoE and RG-LRU branches come with the slices that port
+    those layers.
     """
-    if cfg.n_experts or cfg.lru_width or cfg.window:
-        raise NotImplementedError(f"reduce_config: {cfg.name} has MoE, RG-LRU or window "
-                                  f"layers, not ported yet (ROADMAP A5)")
+    if cfg.n_experts or cfg.lru_width:
+        raise NotImplementedError(f"reduce_config: {cfg.name} has MoE or RG-LRU layers, "
+                                  f"not ported yet (ROADMAP A5)")
     plen = len(cfg.pattern)
     n_layers = plen * 2 + (1 if cfg.n_layers % plen else 0)
     kv_ratio = max(1, cfg.n_heads // cfg.n_kv_heads)
@@ -63,6 +64,7 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         head_dim=16,
         d_ff=128,
         vocab_size=128,
+        window=min(cfg.window, 8) if cfg.window else None,
         dtype=torch.float32,
     )
     if cfg.ssm_state:

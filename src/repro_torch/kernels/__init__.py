@@ -1,13 +1,15 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
 ``streaming_matmul`` (``csrc/streaming_mm.cu``), the fused-region kernel
-(``csrc/fused_region.cu``) and the SSD scan (``csrc/ssd_scan.cu``, reached
-through :func:`ssd`) are built with ``nvcc`` on first use; see
+(``csrc/fused_region.cu``), the SSD scan (``csrc/ssd_scan.cu``, reached
+through :func:`ssd`) and flash attention (``csrc/flash_attention.cu``,
+reached through :func:`attention`) are built with ``nvcc`` on first use; see
 :mod:`repro_torch.kernels.build`.
 """
 
 from repro_torch.kernels.fused import build_region_callable, region_torch
-from repro_torch.kernels.ops import LaunchCounter, resolve_device, ssd, strict_fp32, use_kernel
+from repro_torch.kernels.ops import (LaunchCounter, attention, resolve_device, ssd, strict_fp32,
+                                     use_kernel)
 from repro_torch.kernels.streaming import (
     streaming_conv2d,
     streaming_matmul,
@@ -16,7 +18,7 @@ from repro_torch.kernels.streaming import (
 )
 
 __all__ = [
-    "LaunchCounter", "build_region_callable", "region_torch", "resolve_device", "ssd",
+    "LaunchCounter", "attention", "build_region_callable", "region_torch", "resolve_device", "ssd",
     "streaming_conv2d", "streaming_matmul", "streaming_matmul_torch",
     "streaming_tiles", "strict_fp32", "use_kernel",
 ]

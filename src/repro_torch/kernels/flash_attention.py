@@ -1,0 +1,136 @@
+"""Flash attention forward (``repro/kernels/flash_attention.py``).
+
+:func:`flash_attention` launches the hand-written Hopper kernel
+``csrc/flash_attention.cu`` on CUDA tensors and runs the plain version
+:func:`flash_attention_torch` on CPU tensors; anything else raises. Both
+compute what the TPU kernel's ``_attn_kernel`` computes: scores
+``(q . k) * sm_scale`` in fp32, the KV-tail, causal and sliding-window masks
+with ``NEG_INF = -1e30``, the online max, sum and accumulator in fp32 with
+``p`` kept in fp32 in the ``p v`` product, rows with no visible key giving
+0, and one rounding of ``o`` to q's dtype. GQA points q head ``h`` at kv
+head ``h // (Hq // Hkv)``; KV is never repeated. The kernel reads q, k and v
+through their strides, so the transposed views of ``attention_block`` need
+no copy.
+
+The plain version walks KV blocks of :data:`BLOCK_KV` (the TPU kernel's
+blocking on the prefill path) with all query rows at once. The kernel uses
+tiles of its own (:data:`_BQ` x :data:`_BKV`), so the two sum in different
+orders.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ops import LaunchCounter, use_kernel
+
+COUNTER = LaunchCounter("flash_attention")
+NEG_INF = -1e30
+_LIB = "flash_attention"
+_BQ, _BKV = 64, 64  # the kernel's tile (BQ, BKV in flash_attention.cu)
+BLOCK_KV = 512  # the plain version's KV block
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's template instances
+MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
+
+
+def _check(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    b, hq, _, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    if hq % k.shape[1]:
+        raise ValueError(f"flash_attention: {hq} q heads are not a multiple of "
+                         f"{k.shape[1]} kv heads")
+
+
+def flash_attention_torch(q, k, v, *, causal: bool = True, window: int | None = None,
+                          sm_scale: float | None = None) -> torch.Tensor:
+    """Plain version: the online softmax over KV blocks of :data:`BLOCK_KV`, fp32."""
+    COUNTER.plain_calls += 1
+    _check(q, k, v)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    grp = hq // hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / d**0.5
+    qf = q.float().reshape(b, hkv, grp, sq, d)
+    kf, vf = k.float(), v.float()
+    q_ids = torch.arange(sq, device=q.device)[:, None]
+    m = torch.full((b, hkv, grp, sq, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, grp, sq, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, skv, BLOCK_KV):
+        kb = kf[:, :, None, k0:k0 + BLOCK_KV]  # (B, Hkv, 1, bkv, D); the tail block is short
+        vb = vf[:, :, None, k0:k0 + BLOCK_KV]
+        s = (qf @ kb.transpose(-1, -2)) * sm_scale
+        kv_ids = k0 + torch.arange(kb.shape[3], device=q.device)[None, :]
+        mask = torch.ones((sq, kb.shape[3]), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kv_ids <= q_ids
+        if window is not None:
+            mask &= kv_ids > q_ids - window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        none = m_new <= NEG_INF / 2  # no visible key in the row yet
+        p = torch.where(none, 0.0, torch.exp(s - m_new))
+        alpha = torch.where(none, 0.0, torch.exp(m - m_new))
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p @ vb
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)  # rows with no visible key give 0
+    return (acc / l).reshape(b, hq, sq, d).to(q.dtype)
+
+
+def smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one kernel block (the layout in flash_attention.cu)."""
+    return 4 * (_BQ * (d + 1) + _BKV * (d + 1) + _BKV * d + _BQ * (_BKV + 1) + 3 * _BQ)
+
+
+def _entry(dtype: torch.dtype):
+    name = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}[dtype]
+    fn = getattr(build.library(_LIB), name)
+    if fn.argtypes is None:
+        # q, k, v, o, dims, sm_scale, stream
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Hq, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Skv, D)
+    v: torch.Tensor,  # (B, Hkv, Skv, D)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """Attention with GQA and causal / sliding-window masks; o (B, Hq, Sq, D) in q's dtype."""
+    if not use_kernel(q, k, v):
+        return flash_attention_torch(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+    _check(q, k, v)
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 q/k/v of one dtype, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel: head dim {d} is not one of {HEAD_DIMS}")
+    if sm_scale is None:
+        sm_scale = 1.0 / d**0.5
+    o = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    dims = (ctypes.c_longlong * 21)(
+        b, hq, hkv, sq, skv, d, int(causal), int(window is not None),
+        0 if window is None else window, *q.stride(), *k.stride(), *v.stride(),
+    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = _entry(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                           ctypes.addressof(dims), float(sm_scale), stream)
+    build.check(_LIB, code, "flash_attention")
+    COUNTER.launches += 1
+    return o

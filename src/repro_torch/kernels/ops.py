@@ -77,6 +77,28 @@ class LaunchCounter:
         self.plain_calls = 0
 
 
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+              window: int | None = None, sm_scale: float | None = None, q_offset: int = 0,
+              kv_valid_len: int | None = None) -> torch.Tensor:
+    """Flash attention with GQA and causal / sliding-window masks
+    (``repro/kernels/ops.py::attention`` on its kernel route).
+
+    q (B, Hq, Sq, D), k / v (B, Hkv, Skv, D) -> o (B, Hq, Sq, D) in q's
+    dtype: the kernel for CUDA tensors, its plain version for CPU tensors.
+    ``sm_scale`` defaults to ``1/sqrt(D)``. As on the JAX kernel route, only
+    the full prompt is served (``q_offset == 0``, ``kv_valid_len is None``).
+    """
+    if q_offset != 0 or kv_valid_len is not None:
+        raise NotImplementedError(
+            "attention with q_offset != 0 or kv_valid_len (the decode path, "
+            "_blockwise_attention_xla) is not ported yet (ROADMAP A5: decode / KV cache)"
+        )
+    from repro_torch.kernels import flash_attention  # looked up at call time
+
+    return flash_attention.flash_attention(q, k, v, causal=causal, window=window,
+                                           sm_scale=sm_scale)
+
+
 def ssd(x: torch.Tensor, la: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
         chunk: int = 128) -> torch.Tensor:
     """Mamba-2 SSD scan (``repro/kernels/ops.py::ssd`` without ``return_state``).

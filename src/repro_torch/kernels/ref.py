@@ -9,6 +9,40 @@ from __future__ import annotations
 import torch
 
 
+def attention_ref(
+    q: torch.Tensor,  # (B, Hq, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Skv, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """Dense softmax attention in fp32, GQA by repeating k and v; o in q's dtype.
+
+    Rows with no visible key give 0, as the flash kernel does. The decode
+    offsets of the JAX oracle come with the decode slice.
+    """
+    hq, sq, d = q.shape[1:]
+    skv = k.shape[2]
+    grp = hq // k.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / d**0.5
+    kf = k.float().repeat_interleave(grp, dim=1)
+    vf = v.float().repeat_interleave(grp, dim=1)
+    s = (q.float() @ kf.transpose(-1, -2)) * sm_scale
+    q_ids = torch.arange(sq, device=q.device)[:, None]
+    kv_ids = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kv_ids <= q_ids
+    if window is not None:
+        mask &= kv_ids > q_ids - window
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    out = p @ vf
+    return torch.where(mask.any(dim=-1)[:, None], out, 0.0).to(q.dtype)
+
+
 def ssd_ref(
     x: torch.Tensor,  # (B, H, S, P)
     la: torch.Tensor,  # (B, H, S)

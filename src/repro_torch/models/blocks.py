@@ -1,15 +1,17 @@
-"""Shared NN building blocks: the parameter tree, matmul, norms.
+"""Shared NN building blocks: the parameter tree, matmul, norms, RoPE, MLPs.
 
 Counterpart of ``repro/models/blocks.py``. Parameters live in
 :class:`ParamTree` modules that keep the JAX pytree's names, so a layer
 reads ``p["w_z"]`` as the JAX code does and ``state_dict()`` keys are the
 JAX paths. Matmuls accumulate in fp32 and round once to the activation
-dtype. RoPE and the MLPs come with the attention slice.
+dtype; RoPE and the MLP activations are taken in fp32 and cast back once,
+where the JAX code casts.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -84,3 +86,54 @@ def apply_norm(x, params, kind: str, eps: float):
 
 def init_norm(d: int, kind: str, device, dtype=torch.float32) -> ParamTree:
     return init_rmsnorm(d, device, dtype) if kind == "rms" else init_layernorm(d, device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, D_head); positions: (S,) or (..., S) token positions."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)  # (d/2,)
+    angles = positions[..., :, None].float() * freqs  # (..., S, d/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(d: int, d_ff: int, act: str, gen, device, dtype=torch.bfloat16) -> ParamTree:
+    std = d**-0.5
+    p = {}
+    if act in ("swiglu", "geglu"):
+        p["w_gate"] = normal((d, d_ff), std, gen, device, dtype)
+    p["w_up"] = normal((d, d_ff), std, gen, device, dtype)
+    p["w_down"] = normal((d_ff, d), d_ff**-0.5, gen, device, dtype)
+    return ParamTree(p)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def mlp(x: torch.Tensor, params, act: str) -> torch.Tensor:
+    if act == "swiglu":
+        h = F.silu(_dot(x, params["w_gate"]).float()).to(x.dtype)
+        h = h * _dot(x, params["w_up"])
+    elif act == "geglu":
+        h = _gelu(_dot(x, params["w_gate"]).float()).to(x.dtype)
+        h = h * _dot(x, params["w_up"])
+    else:
+        h = _gelu(_dot(x, params["w_up"]).float()).to(x.dtype)
+    return _dot(h, params["w_down"])

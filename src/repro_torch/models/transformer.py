@@ -1,11 +1,13 @@
-"""The decoder stack (``repro/models/transformer.py``), Mamba-2 layers so far.
+"""The decoder stack (``repro/models/transformer.py``).
 
 Layers are grouped into pattern units as in the JAX package; where JAX
 stacks equal-kind layers along a leading axis and ``lax.scan``s over them,
 the port keeps one module per layer — ``units[pos][u]`` is the layer of
-pattern position ``pos`` in unit ``u`` — and loops over them. Only the
-``("ssm", None)`` layer kind is ported; attention, RG-LRU, MLP and MoE
-layers raise, naming the ROADMAP item that ports them.
+pattern position ``pos`` in unit ``u`` — and loops over them. Ported mixers:
+``"attn"`` (full causal attention), ``"swa"`` (the same block with
+``window=cfg.window``) and ``"ssm"`` (Mamba-2); ported FFNs: ``"mlp"`` and
+none. RG-LRU mixers and MoE FFNs raise, naming the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
@@ -15,16 +17,22 @@ from typing import Any
 import torch
 from torch import nn
 
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.blocks import ParamTree, apply_norm, init_norm
+from repro_torch.models.blocks import ParamTree, apply_norm, init_mlp, init_norm, mlp
 from repro_torch.models.config import ModelConfig, ParallelCtx
 
+MIXERS = ("attn", "swa", "ssm")
+FFNS = ("mlp", None)
 
-def _not_ported(kind) -> NotImplementedError:
-    return NotImplementedError(
-        f"layer kind {kind!r} is not ported yet (ROADMAP A5: attention with the "
-        f"flash-attention kernel B3, MLP, MoE and RG-LRU layers); ported: ('ssm', None)"
-    )
+
+def _check_kind(kind) -> None:
+    mixer, ffn = kind
+    if mixer not in MIXERS or ffn not in FFNS:
+        raise NotImplementedError(
+            f"layer kind {kind!r} is not ported yet (ROADMAP A5: MoE and RG-LRU layers); "
+            f"ported mixers {MIXERS}, FFNs {FFNS}"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -33,21 +41,33 @@ def _not_ported(kind) -> NotImplementedError:
 
 
 def init_layer(cfg: ModelConfig, kind, gen: torch.Generator | None, device) -> ParamTree:
+    _check_kind(kind)
     mixer, ffn = kind
-    if mixer != "ssm" or ffn is not None:
-        raise _not_ported(kind)
     p: dict[str, Any] = {"norm1": init_norm(cfg.d_model, cfg.norm_type, device)}
-    p["ssm"] = ssm_mod.init_ssm_block(cfg, gen, device, cfg.dtype)
+    if mixer == "ssm":
+        p["ssm"] = ssm_mod.init_ssm_block(cfg, gen, device, cfg.dtype)
+    else:
+        p["attn"] = attn_mod.init_attention(cfg, gen, device, cfg.dtype)
+    if ffn is not None:
+        p["norm2"] = init_norm(cfg.d_model, cfg.norm_type, device)
+        p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_act, gen, device, cfg.dtype)
     return ParamTree(p)
 
 
 def apply_layer(x, p, cfg: ModelConfig, kind, ctx: ParallelCtx):
+    _check_kind(kind)
     mixer, ffn = kind
-    if mixer != "ssm" or ffn is not None:
-        raise _not_ported(kind)
     h = apply_norm(x, p["norm1"], cfg.norm_type, cfg.norm_eps)
-    h = ssm_mod.ssm_block(h, p["ssm"], cfg, chunk=ctx.ssd_chunk)
-    return x + h
+    if mixer == "ssm":
+        h = ssm_mod.ssm_block(h, p["ssm"], cfg, chunk=ctx.ssd_chunk)
+    else:
+        window = cfg.window if mixer == "swa" else None
+        h = attn_mod.attention_block(h, p["attn"], cfg, window=window)
+    x = x + h
+    if ffn is not None:
+        h = apply_norm(x, p["norm2"], cfg.norm_type, cfg.norm_eps)
+        x = x + mlp(h, p["mlp"], cfg.mlp_act)
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -49,7 +49,8 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.models.config", "repro_torch.models.blocks",
                 "repro_torch.models.ssm", "repro_torch.models.transformer",
                 "repro_torch.models.lm", "repro_torch.configs",
-                "repro_torch.configs.mamba2_780m"):
+                "repro_torch.configs.mamba2_780m", "repro_torch.kernels.flash_attention",
+                "repro_torch.models.attention", "repro_torch.configs.qwen1_5_0_5b"):
         assert mod in res["modules"]
 
 

@@ -17,8 +17,8 @@ import pytest
 import torch
 
 from repro_torch.convert import params_from_jax
-from repro_torch.kernels import fused, ssd_scan, streaming
-from repro_torch.kernels.ref import ssd_ref
+from repro_torch.kernels import flash_attention, fused, ssd_scan, streaming
+from repro_torch.kernels.ref import attention_ref, ssd_ref
 from repro_torch.lower import (
     MaxPool2dSpec,
     RegionSpec,
@@ -209,6 +209,18 @@ def test_ssd_kernel_dt_to_one_matches_ssd_ref(cuda_device, dtype):
     assert _rel_err(got, seq) <= SSD_TOL[dtype]
 
 
+# parameters through lm_params_from_jax, from a stacked tree like JAX's init_lm
+# (one pattern position, no remainder layers); needs `cfg` defined first
+_CONVERTED_PARAMS = """
+own = init_lm(cfg, seed=0, device="cpu")
+units = own["decoder"]["units"][0]
+tree = {"embed": own["embed"], "final_norm": {"scale": own["final_norm"]["scale"]},
+        "decoder": {"units": [{
+            k: torch.stack([dict(layer.named_parameters())[k] for layer in units])
+            for k, _ in units[0].named_parameters()}], "rem": []}}
+params = lm_params_from_jax(tree, cfg, "cuda")  # no resolve_device on this route
+"""
+
 _FRESH_PREFILL = """
 import torch
 from repro_torch.configs import get_config, reduce_config
@@ -221,13 +233,7 @@ flag = torch.backends.cuda.matmul
 print("default allow_bf16_reduced_precision_reduction:",
       flag.allow_bf16_reduced_precision_reduction)
 cfg = reduce_config(get_config("mamba2_780m")).with_(dtype=torch.bfloat16)
-own = init_lm(cfg, seed=0, device="cpu")
-units = own["decoder"]["units"][0]
-tree = {"embed": own["embed"], "final_norm": {"scale": own["final_norm"]["scale"]},
-        "decoder": {"units": [{
-            k: torch.stack([dict(layer.named_parameters())[k] for layer in units])
-            for k, _ in units[0].named_parameters()}], "rem": []}}
-params = lm_params_from_jax(tree, cfg, "cuda")  # no resolve_device on this route
+""" + _CONVERTED_PARAMS + """
 tokens = torch.randint(0, cfg.vocab_size, (2, 256), device="cuda")
 first = prefill(params, tokens, cfg, ParallelCtx())
 assert not flag.allow_bf16_reduced_precision_reduction and not flag.allow_tf32
@@ -257,3 +263,123 @@ def test_ssd_kernel_refuses_mixed_devices_and_types(cuda_device):
         ssd_scan.ssd_scan(x.half(), la, b.half(), c.half(), chunk=32)
     with pytest.raises(TypeError):
         ssd_scan.ssd_scan(x, la.double(), b, c, chunk=32)
+
+
+# (B, Hq, Hkv, Sq, Skv, D, causal, window): tests/kernels/test_flash_attention.py,
+# recurrentgemma's D-256 MQA window, a KV tail and rows with no visible key
+ATTN_CASES = [
+    (2, 4, 2, 128, 128, 64, True, None),
+    (1, 8, 4, 256, 256, 64, True, None),
+    (1, 4, 4, 128, 384, 64, True, 128),
+    (2, 2, 1, 128, 128, 128, False, None),
+    (1, 2, 2, 64, 192, 32, True, 64),
+    (1, 10, 1, 1024, 1024, 256, True, 512),
+    (1, 2, 2, 640, 640, 16, True, None),
+    (1, 3, 1, 600, 600, 32, True, 100),  # partial query and key tiles of the kernel
+    (1, 2, 1, 256, 64, 64, True, 32),
+]
+ATTN_IDS = [f"b{c[0]}-h{c[1]}/{c[2]}-s{c[3]}/{c[4]}-d{c[5]}-{'c' if c[6] else 'nc'}-w{c[7]}"
+            for c in ATTN_CASES]
+
+
+def _attn_inputs(b, hq, hkv, sq, skv, d, seed, device, dtype=torch.float32):
+    rng = np.random.RandomState(seed)
+    return tuple(torch.as_tensor(rng.randn(b, h, s, d) * 0.3, dtype=torch.float32)
+                 .to(device, dtype) for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
+
+
+def _attn_close(got, want):
+    """fp32: the band of the JAX kernel sweep; bf16: one rounding of o, 1e-2 of max|o|."""
+    if want.dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-3)
+    else:
+        assert _rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", ATTN_CASES, ids=ATTN_IDS)
+def test_attention_kernel_matches_plain(cuda_device, b, hq, hkv, sq, skv, d, causal, window,
+                                        dtype):
+    q, k, v = _attn_inputs(b, hq, hkv, sq, skv, d, sq + skv + d, cuda_device, dtype)
+    kw = {"causal": causal, "window": window}
+    flash_attention.COUNTER.reset()
+    got = flash_attention.flash_attention(q, k, v, **kw)
+    again = flash_attention.flash_attention(q, k, v, **kw)
+    want = flash_attention.flash_attention_torch(q, k, v, **kw)
+    dense = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (flash_attention.COUNTER.launches, flash_attention.COUNTER.plain_calls) == (2, 1)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)  # no atomics: the same bits run to run
+    _attn_close(got, want)
+    _attn_close(got, dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_kernel_reads_transposed_views(cuda_device, dtype):
+    """The (B,S,H,D) -> (B,H,S,D) views that attention_block passes, no copy."""
+    q, k, v = _attn_inputs(2, 8, 2, 256, 256, 64, 3, cuda_device, dtype)
+    qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    assert not (qv.is_contiguous() or kv.is_contiguous() or vv.is_contiguous())
+    got = flash_attention.flash_attention(qv, kv, vv, window=100)
+    want = flash_attention.flash_attention(q, k, v, window=100)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_attention_rows_with_no_visible_key_are_zero(cuda_device):
+    q, k, v = _attn_inputs(1, 4, 2, 256, 64, 128, 4, cuda_device)
+    got = flash_attention.flash_attention(q, k, v, causal=True, window=32)
+    torch.cuda.synchronize()
+    assert not bool(got[:, :, 95:].any())
+    assert bool((got[:, :, :95].abs().amax(dim=-1) > 0).all())
+
+
+@pytest.mark.cuda
+def test_attention_kernel_refuses_bad_operands(cuda_device):
+    q, k, v = _attn_inputs(1, 4, 2, 64, 64, 64, 0, cuda_device)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, k.cpu(), v)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q, k.bfloat16(), v)
+    q48, k48, v48 = _attn_inputs(1, 4, 2, 64, 64, 48, 0, cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(q48, k48, v48)
+
+
+_FRESH_QWEN_PREFILL = """
+import torch
+from repro_torch.configs import get_config
+from repro_torch.convert import lm_params_from_jax
+from repro_torch.kernels import flash_attention
+from repro_torch.models.config import ParallelCtx
+from repro_torch.models.lm import init_lm, prefill
+
+cfg = get_config("qwen1_5_0_5b").with_(n_layers=2)
+""" + _CONVERTED_PARAMS + """
+tokens = torch.randint(0, cfg.vocab_size, (2, 512), device="cuda")
+first = prefill(params, tokens, cfg, ParallelCtx())
+assert flash_attention.COUNTER.launches == 2 and flash_attention.COUNTER.plain_calls == 0
+assert bool(torch.isfinite(first).all())
+flash_attention.flash_attention = flash_attention.flash_attention_torch
+plain = prefill(params, tokens, cfg, ParallelCtx())
+err = float((first - plain).abs().max()) / float(plain.abs().max())
+assert err <= 2e-2, err
+"""
+
+
+@pytest.mark.cuda
+def test_qwen_prefill_on_converted_params(cuda_device):
+    """A fresh process, Qwen1.5-0.5B at full width (2 layers) on parameters from
+    lm_params_from_jax: every attention layer launches the kernel, and the
+    bf16 logits are within 2e-2 of max|logits| of the plain-attention prefill."""
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = {**os.environ, "PYTHONPATH": f"{src}{os.pathsep}{os.environ.get('PYTHONPATH', '')}"}
+    run = subprocess.run([sys.executable, "-c", textwrap.dedent(_FRESH_QWEN_PREFILL)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stdout + run.stderr

@@ -78,12 +78,13 @@ def test_reduced_config_matches_jax():
 
 def test_unported_archs_and_layers_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("qwen1_5_0_5b")
+        get_config("qwen3_moe_235b_a22b")
     with pytest.raises(KeyError):
         get_config("no_such_arch")
     cfg = reduce_config(get_config("mamba2_780m"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_layer(cfg, ("attn", "mlp"), None, "cpu")
+    for kind in (("attn", "moe"), ("rec", "mlp")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            transformer.init_layer(cfg, kind, None, "cpu")
 
 
 def test_parameter_count_on_meta_matches_jax_eval_shape():
