@@ -18,7 +18,12 @@ main path, drives the main paths and checks that each went through its kernels:
 * ``repro_torch.models.lm.prefill`` of Qwen1.5-0.5B at full width and
   depth (24 attention + MLP layers, d_model 1024, 16 heads of 64, vocab
   151,936) on 2 x 2,048 tokens, in bf16 and in fp32 (the flash-attention
-  kernel, 24 launches per prefill).
+  kernel, 24 launches per prefill);
+* the NTX kernel API at the paper's GoogLeNet layer widths, batch 32:
+  ``repro_torch.kernels.ops.matmul`` (plain and compensated, fp32 and bf16)
+  on the four layers' im2col products and on 1024^3 (the NTX matmul
+  kernel), then ``repro_torch.kernels.conv2d_ntx`` on the four layers in
+  fp32 and L1 in bf16 (the direct-convolution kernel).
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` JSON line, and ``{"ok": true, "device": {...}}``.
@@ -62,6 +67,30 @@ ATTN_F32 = {"atol": 2e-5, "rtol": 1e-3}
 ATTN_BF16 = 1e-2
 # Qwen1.5-0.5B prefill: batch x tokens, ids below the vocab 151,936
 QWEN_BATCH, QWEN_SEQ, QWEN_TOKEN_HIGH = 2, 2048, 151_936
+# the paper's GoogLeNet conv layers (Tables 2-4; CONV_LAYERS["googlenet"] of
+# benchmarks/workloads.py) at batch 32: (label, H, W, Cin, k, stride, pad, Cout)
+GOOGLENET = (
+    ("L0", 224, 224, 3, 7, 2, 3, 64),
+    ("L1", 56, 56, 64, 3, 1, 1, 192),
+    ("L2", 28, 28, 256, 1, 1, 0, 64),
+    ("L3", 14, 14, 512, 1, 1, 0, 192),
+)
+NTX_BATCH = 32
+# ntx_matmul gates on randn operands: |kernel - plain| <= atol sqrt(K) + rtol |plain|
+# (the band of tests/kernels/test_ntx_matmul.py); RMS error against the fp64
+# product at most MM_RMS x the plain version's
+MM_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+MM_RTOL = 1e-2
+MM_RMS = 1.05
+# compensation gate: integers below 256 (exact in bf16 too) over Table 1's
+# reduction length K = 3*3*192, so each K tile of 128 sums exactly in fp32
+# (< 2**23) and the total (~2.8e7) crosses 2**24
+COMP_SHAPE, COMP_HIGH = (1024, 1728, 192), 256
+# conv2d_ntx gates: fp32 elementwise atol + rtol |want| (the band of
+# tests/kernels/test_conv2d.py: x randn, w 0.2 randn); bf16 max|y - want|
+# <= 1e-2 max|want| (y rounds once: at most 2**-9 of it)
+CONV_F32 = {"atol": 1e-4, "rtol": 1e-4}
+CONV_BF16 = 1e-2
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1158,6 +1187,303 @@ def qwen_prefill_path(smoke: Smoke, device, cfg=None, batch: int = QWEN_BATCH,
     torch.cuda.empty_cache()
 
 
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def seeded(shape, dtype, device, seed: int, scale: float = 1.0):
+    """N(0, scale^2) values made on ``device`` from ``seed``, in ``dtype``."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=device) * scale).to(dtype)
+
+
+def conv_geometry(h, w, k, stride, pad):
+    return (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+
+
+def mm_cases(layers=GOOGLENET, batch: int = NTX_BATCH, big: int = 1024):
+    """(label, M, K, N, dtype): each layer's im2col product in fp32 and bf16,
+    and kernels_bench's big^3 in fp32."""
+    import torch
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, h, w, cin, k, s, p, cout in layers:
+            oh, ow = conv_geometry(h, w, k, s, p)
+            cases.append((f"{label} {dtype_name(dtype)}", batch * oh * ow, k * k * cin, cout,
+                          dtype))
+    cases.append((f"{big}^3 float32", big, big, big, torch.float32))
+    return cases
+
+
+def rms(x) -> float:
+    return float(x.double().square().mean().sqrt())
+
+
+def check_ntx_matmul(smoke: Smoke, device, cases=None, comp_shape=COMP_SHAPE):
+    """ops.matmul, plain and compensated, vs ntx_matmul_torch and fp64.
+
+    First the path: every case through ``ops.matmul`` in both modes, with
+    the launch counts set to 0 just before and read just after. Then, per
+    call: the kernel vs the plain version in the same mode at the band of
+    tests/kernels/test_ntx_matmul.py, its RMS error against the fp64
+    product at most MM_RMS x the plain version's, the same bits on a second
+    run. The compensation gate uses integer operands on which every K tile
+    sums exactly and the total crosses 2**24: the compensated kernel must
+    equal the fp64 product rounded once and the compensated plain version
+    bit for bit; the uncompensated kernel, read through the same gate, is
+    the control and must be rejected. The band and the RMS gate have their
+    own controls (:func:`check_mm_controls`).
+    """
+    import torch
+
+    from repro_torch.kernels import ntx_matmul as mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import matmul_ref64
+
+    cases = cases or mm_cases()
+    operands = {label: (seeded((m, k), dt, device, 2 * i), seeded((k, n), dt, device, 2 * i + 1))
+                for i, (label, m, k, n, dt) in enumerate(cases)}
+    mm.COUNTER.reset()
+    outs = {(label, comp): ops.matmul(*operands[label], compensated=comp)
+            for label, *_ in cases for comp in (False, True)}
+    torch.cuda.synchronize()
+    launches, plain_calls = mm.COUNTER.launches, mm.COUNTER.plain_calls
+    print(f"  path: ops.matmul over {len(cases)} shapes x 2 modes: {launches} kernel launches, "
+          f"{plain_calls} plain calls")
+    assert launches == 2 * len(cases) and plain_calls == 0, (launches, plain_calls)
+
+    print(f"{'case':>15} {'mode':>5} {'M':>7} {'K':>5} {'N':>5} {'vs plain':>8} {'vs f64':>7} "
+          f"{'rms/plain':>9} {'ms':>8} {'plain':>8} {'matmul':>8} {'bound':>8}  (gates in units)")
+    worst, rows = 0.0, {}
+    for label, m, k, n, dt in cases:
+        a, b = operands[label]
+        dn = dtype_name(dt)
+        ref64 = matmul_ref64(a, b)
+        bk = ops.matmul_block_k(k)
+        atol = MM_ATOL[dn] * k ** 0.5
+        a32, b32 = a.float(), b.float()  # bf16: the same exact products, summed in fp32
+        lib = time_ms(lambda: torch.matmul(a32, b32))
+        del a32, b32
+        nbytes = a.element_size() * (m * k + k * n) + 4.0 * m * n
+        bnd, by = bound_ms(nbytes, 2.0 * m * n * k, dn)
+        for comp in (False, True):
+            got = outs[label, comp]
+            want = mm.ntx_matmul_torch(a, b, block_k=bk, compensated=comp)
+            u_plain = float(((got - want).abs() / (atol + MM_RTOL * want.abs())).max())
+            u_ref = float(((got.double() - ref64).abs() / (atol + MM_RTOL * ref64.abs())).max())
+            ratio = rms(got.double() - ref64) / max(rms(want.double() - ref64), 1e-300)
+            same = torch.equal(got, ops.matmul(a, b, compensated=comp))
+            ms = time_ms(lambda: ops.matmul(a, b, compensated=comp))
+            plain = time_ms(lambda: mm.ntx_matmul_torch(a, b, block_k=bk, compensated=comp),
+                            iters=5)
+            mode = "comp" if comp else "plain"
+            print(f"{label:>15} {mode:>5} {m:>7} {k:>5} {n:>5} {u_plain:>8.4f} {u_ref:>7.4f} "
+                  f"{ratio:>9.4f} {ms:>8.4f} {plain:>8.4f} "
+                  f"{(f'{lib:.4f}' if not comp else 'none'):>8} {bnd:>8.5f}")
+            worst = max(worst, max_abs(got, want))
+            rows[label, comp] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+                                 "library_ms": None if comp else lib}
+            assert bool(torch.isfinite(got).all()) and got.shape == (m, n), f"{label} {mode}"
+            assert got.dtype == torch.float32, got.dtype
+            assert u_plain <= 1, f"{label} {mode}: kernel vs plain {u_plain:.3f} of the band"
+            assert ratio <= MM_RMS, f"{label} {mode}: RMS vs fp64 {ratio:.4f} x the plain's"
+            assert same, f"{label} {mode}: two runs gave different bits"
+        del ref64
+    print(f"  bound at the operands' type rate (fp32 67, bf16 989 TFLOP/s); 'matmul' is "
+          f"torch.matmul in fp32, TF32 off (bf16 operands widened first); compensated mode "
+          f"has no library call")
+    check_mm_controls(operands, outs, cases)
+
+    a16, b16 = (seeded((2, 2), torch.bfloat16, device, 0) for _ in range(2))
+    out16 = ops.matmul(a16, b16, out_dtype=torch.bfloat16)
+    assert out16.dtype == torch.bfloat16 and torch.equal(
+        out16, mm.ntx_matmul_torch(a16, b16, block_k=2, out_dtype=torch.bfloat16))
+
+    m, k, n = comp_shape
+    print(f"  compensation gate: integers in [0, {COMP_HIGH}), M {m}, K {k}, N {n}, K tiles of "
+          f"{ops.matmul_block_k(k)}; elements that differ from the fp64 product rounded once:")
+    for dt in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=device).manual_seed(3)
+        a = torch.randint(0, COMP_HIGH, (m, k), generator=g, device=device).to(dt)
+        b = torch.randint(0, COMP_HIGH, (k, n), generator=g, device=device).to(dt)
+        exact = matmul_ref64(a, b)
+        over = float((exact > 2.0 ** 24).double().mean())
+        exact = exact.float()
+        comp_k = ops.matmul(a, b, compensated=True)
+        comp_p = mm.ntx_matmul_torch(a, b, block_k=ops.matmul_block_k(k), compensated=True)
+        ctl = ops.matmul(a, b)
+        n_k, n_p, n_ctl = (int((x != exact).sum()) for x in (comp_k, comp_p, ctl))
+        print(f"    {dtype_name(dt)}: sums above 2**24 {over:.3f}; compensated kernel {n_k}, "
+              f"compensated plain {n_p}, control (plain-mode kernel) {n_ctl} of {m * n}, max "
+              f"{float((ctl - exact).abs().max()):.1f}: {'rejected' if n_ctl else 'passes'}")
+        assert n_k == 0 and torch.equal(comp_k, comp_p), "compensated kernel is not exact"
+        assert n_ctl > 0, "the compensation gate let the plain-mode control through"
+
+    key = ("L1 float32", False)
+    smoke.kernels["ntx_matmul"] = {
+        "name": "ntx_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ntx_matmul.cu",
+        "replaces": "src/repro/kernels/ntx_matmul.py:63",
+        "launches": launches,
+        "max_abs_err": worst,
+        **rows.get(key, rows[cases[0][0], False]),
+        "at": "GoogLeNet L1 im2col product, fp32, plain mode, via ops.matmul",
+    }
+
+
+def check_mm_controls(operands, outs, cases):
+    """Lower-precision controls read through both ntx_matmul gates, on the
+    fp32 L1 operands (the first fp32 case when L1 is not among them): the
+    TF32 product (cuBLAS, TF32 on) must be rejected by the band and by the
+    RMS gate; the kernel's output rounded through bf16 must be rejected by
+    the RMS gate. The band's rtol (1e-2) is wider than bf16 rounding
+    (2**-9), so its reading of that control is printed, not gated."""
+    import torch
+
+    from repro_torch.kernels import ntx_matmul as mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import matmul_ref64
+
+    fp32 = [label for label, *_, dt in cases if dt == torch.float32]
+    label = "L1 float32" if "L1 float32" in fp32 else fp32[0]
+    a, b = operands[label]
+    k = a.shape[1]
+    atol = MM_ATOL["float32"] * k ** 0.5
+    ref64 = matmul_ref64(a, b)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = torch.matmul(a, b)
+    finally:
+        ops.strict_fp32()
+    print(f"  controls on {label}, in units of the band (<= 1 passes) and of the plain "
+          f"version's RMS error vs fp64 (<= {MM_RMS} passes):")
+    for comp in (False, True):
+        want = mm.ntx_matmul_torch(a, b, block_k=ops.matmul_block_k(k), compensated=comp)
+        base = max(rms(want.double() - ref64), 1e-300)
+        mode = "comp" if comp else "plain"
+        for name, ctl in (("TF32 product", tf32),
+                          ("kernel output via bf16", outs[label, comp].bfloat16().float())):
+            band = float(((ctl - want).abs() / (atol + MM_RTOL * want.abs())).max())
+            ratio = rms(ctl.double() - ref64) / base
+            tf = name.startswith("TF32")
+            print(f"    {mode:>5} {name:>22}: band {band:.4f} "
+                  f"({'rejected' if band > 1 else 'passes'}{'' if tf else ', not gated'}), "
+                  f"RMS {ratio:.1f}x ({'rejected' if ratio > MM_RMS else 'passes'})")
+            assert ratio > MM_RMS, f"{mode}: the RMS gate let the {name} control through"
+            if tf:
+                assert band > 1, f"{mode}: the band let the {name} control through"
+    del ref64, tf32
+
+
+def conv_cases(layers=GOOGLENET):
+    """(label, layer, dtype): every layer in fp32, L1 in bf16."""
+    import torch
+
+    cases = [(f"{layer[0]} float32", layer, torch.float32) for layer in layers]
+    cases += [(f"{layer[0]} bfloat16", layer, torch.bfloat16) for layer in layers
+              if layer[0] == "L1"]
+    return cases
+
+
+def conv_gate(got, want, dtype) -> float:
+    """Error in units of the conv gate (<= 1 passes)."""
+    import torch
+
+    d = (got.double() - want.double()).abs()
+    if dtype == torch.float32:
+        return float((d / (CONV_F32["atol"] + CONV_F32["rtol"] * want.double().abs())).max())
+    return float(d.max()) / (CONV_BF16 * float(want.double().abs().max()))
+
+
+def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH):
+    """conv2d_ntx at the GoogLeNet layers vs conv2d_ntx_torch and an fp64 conv.
+
+    First the path: every layer through ``conv2d_ntx`` (inputs padded with
+    F.pad; L0's a strided NHWC view of NCHW data), launch counts set to 0
+    just before and read just after. Gates: kernel vs the plain version and
+    vs the fp64 im2col conv at CONV_F32 / CONV_BF16, the same bits on a
+    second run, and L0 on its strided input equal to L0 on a contiguous
+    copy. Control: the fp32 kernel's output rounded through bf16, read
+    through the fp32 gate, must be rejected.
+    """
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import conv2d
+    from repro_torch.kernels.ref import conv2d_ref
+
+    cases = conv_cases(layers)
+    inputs = {}
+    for i, (label, (name, h, w, cin, k, s, p, cout), dt) in enumerate(cases):
+        if name == "L0" and dt == torch.float32:  # NCHW data, padded, viewed as NHWC
+            x = F.pad(seeded((batch, cin, h, w), dt, device, 10 + i), (p, p, p, p))
+            x = x.permute(0, 2, 3, 1)
+        else:
+            x = F.pad(seeded((batch, h, w, cin), dt, device, 10 + i), (0, 0, p, p, p, p))
+        inputs[label] = (x, seeded((k, k, cin, cout), dt, device, 20 + i, 0.2), s)
+    conv2d.COUNTER.reset()
+    outs = {label: conv2d.conv2d_ntx(x, wt, stride=s) for label, (x, wt, s) in inputs.items()}
+    torch.cuda.synchronize()
+    launches, plain_calls = conv2d.COUNTER.launches, conv2d.COUNTER.plain_calls
+    print(f"  path: conv2d_ntx over {len(cases)} layers: {launches} kernel launches, "
+          f"{plain_calls} plain calls")
+    assert launches == len(cases) and plain_calls == 0, (launches, plain_calls)
+
+    print(f"{'case':>12} {'out (N,OH,OW,C)':>20} {'vs plain':>8} {'vs f64':>7} {'ctl bf16':>8} "
+          f"{'ms':>8} {'plain':>8} {'conv2d':>8} {'bound':>8}  (gates in units)")
+    worst, rows = 0.0, {}
+    for label, (name, h, w, cin, k, s, p, cout), dt in cases:
+        x, wt, s = inputs[label]
+        y = outs[label]
+        oh, ow = conv_geometry(h, w, k, s, p)
+        want = conv2d.conv2d_ntx_torch(x, wt, stride=s)
+        ref64 = conv2d_ref(x.double(), wt.double(), stride=s)
+        u_plain, u_ref = conv_gate(y, want, dt), conv_gate(y, ref64, dt)
+        ctl = conv_gate(y.bfloat16(), want, torch.float32) if dt == torch.float32 else None
+        del ref64
+        assert y.shape == (batch, oh, ow, cout) and y.dtype == dt, (y.shape, y.dtype)
+        assert bool(torch.isfinite(y).all()), f"{label}: non-finite output"
+        assert torch.equal(y, conv2d.conv2d_ntx(x, wt, stride=s)), f"{label}: runs differ"
+        if not x.is_contiguous():
+            assert torch.equal(y, conv2d.conv2d_ntx(x.contiguous(), wt, stride=s)), \
+                f"{label}: strided and contiguous input gave different bits"
+        xc = x.contiguous()
+        ms = time_ms(lambda: conv2d.conv2d_ntx(x, wt, stride=s))
+        plain = time_ms(lambda: conv2d.conv2d_ntx_torch(x, wt, stride=s), iters=5)
+        x_cl, w_oihw = xc.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)  # channels-last NCHW
+        lib = time_ms(lambda: F.conv2d(x_cl, w_oihw, stride=s))
+        es = x.element_size()
+        nbytes = es * (x.numel() + wt.numel() + y.numel())
+        bnd, by = bound_ms(nbytes, 2.0 * batch * oh * ow * cout * k * k * cin, dtype_name(dt))
+        print(f"{label:>12} {str((batch, oh, ow, cout)):>20} {u_plain:>8.4f} {u_ref:>7.4f} "
+              f"{(f'{ctl:.2f}' if ctl is not None else '-'):>8} {ms:>8.4f} {plain:>8.4f} "
+              f"{lib:>8.4f} {bnd:>8.5f}")
+        worst = max(worst, max_abs(y, want))
+        rows[label] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
+                       "bound_by": by}
+        assert u_plain <= 1 and u_ref <= 1, \
+            f"{label}: kernel vs plain {u_plain:.3f}, vs fp64 {u_ref:.3f} of the gate"
+        if ctl is not None:
+            assert ctl > 1, f"{label}: the fp32 gate let the bf16-rounded control through"
+    print("  strided L0 == contiguous L0 and run == run: identical bits; controls (fp32 "
+          "output rounded to bf16) rejected; 'conv2d' is F.conv2d on the NHWC tensors as "
+          "channels-last NCHW, cuDNN TF32 off")
+    smoke.kernels["conv2d_ntx"] = {
+        "name": "conv2d_ntx",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/conv2d_ntx.cu",
+        "replaces": "src/repro/kernels/conv2d.py:53",
+        "launches": launches,
+        "max_abs_err": worst,
+        **rows.get("L1 float32", rows[cases[0][0]]),
+        "at": "GoogLeNet L1 at batch 32, fp32",
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1181,7 +1507,9 @@ def main() -> int:
         smoke.phase("flash_attention vs plain", check_attention, smoke, device)
         if "flash_attention" in smoke.kernels:
             smoke.phase("qwen prefill path", qwen_prefill_path, smoke, device)
-    if len(smoke.kernels) != 4 and "kernels" not in smoke.failures:
+        smoke.phase("ntx_matmul vs plain", check_ntx_matmul, smoke, device)
+        smoke.phase("conv2d_ntx vs plain", check_conv2d, smoke, device)
+    if len(smoke.kernels) != 6 and "kernels" not in smoke.failures:
         smoke.failures.append("kernels")
     if smoke.failures:
         print(f"chip_smoke FAILED: {smoke.failures}", flush=True)

@@ -2,14 +2,17 @@
 
 ``streaming_matmul`` (``csrc/streaming_mm.cu``), the fused-region kernel
 (``csrc/fused_region.cu``), the SSD scan (``csrc/ssd_scan.cu``, reached
-through :func:`ssd`) and flash attention (``csrc/flash_attention.cu``,
-reached through :func:`attention`) are built with ``nvcc`` on first use; see
-:mod:`repro_torch.kernels.build`.
+through :func:`ssd`), flash attention (``csrc/flash_attention.cu``, reached
+through :func:`attention`), the NTX matmul (``csrc/ntx_matmul.cu``, reached
+through :func:`matmul`) and the NTX direct convolution
+(``csrc/conv2d_ntx.cu``, :func:`conv2d_ntx`) are built with ``nvcc`` on first
+use; see :mod:`repro_torch.kernels.build`.
 """
 
+from repro_torch.kernels.conv2d import conv2d_ntx
 from repro_torch.kernels.fused import build_region_callable, region_torch
-from repro_torch.kernels.ops import (LaunchCounter, attention, resolve_device, ssd, strict_fp32,
-                                     use_kernel)
+from repro_torch.kernels.ops import (LaunchCounter, attention, matmul, resolve_device, ssd,
+                                     strict_fp32, use_kernel)
 from repro_torch.kernels.streaming import (
     streaming_conv2d,
     streaming_matmul,
@@ -18,7 +21,8 @@ from repro_torch.kernels.streaming import (
 )
 
 __all__ = [
-    "LaunchCounter", "attention", "build_region_callable", "region_torch", "resolve_device", "ssd",
+    "LaunchCounter", "attention", "build_region_callable", "conv2d_ntx", "matmul",
+    "region_torch", "resolve_device", "ssd",
     "streaming_conv2d", "streaming_matmul", "streaming_matmul_torch",
     "streaming_tiles", "strict_fp32", "use_kernel",
 ]

@@ -1,16 +1,18 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
-Every source under ``csrc/`` is a self-contained ``.cu`` file with a plain
-C interface (no PyTorch headers), compiled for Hopper into its own shared
-library under ``build/repro_torch_kernels/`` at the repository root:
+Every source under ``csrc/`` is a ``.cu`` file with a plain C interface (no
+PyTorch headers; it may include the ``.cuh`` headers beside it), compiled
+for Hopper into its own shared library under ``build/repro_torch_kernels/``
+at the repository root:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas=-v -o lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt and a built one is reused. Nothing is compiled when a
-module is imported: :func:`library` builds on first use, and
-:func:`build_all` starts one ``nvcc`` per source at once and waits for all.
+The library name carries a hash of the source, the headers and the flags,
+so an edited source or header is rebuilt and a built one is reused.
+Nothing is compiled when a module is imported: :func:`library` builds on
+first use, and :func:`build_all` starts one ``nvcc`` per source at once and
+waits for all.
 A failed build raises with the compiler's output.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
@@ -29,7 +31,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("streaming_mm", "fused_region", "ssd_scan", "flash_attention")
+SOURCES = ("streaming_mm", "fused_region", "ssd_scan", "flash_attention", "ntx_matmul",
+           "conv2d_ntx")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -53,6 +56,7 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -77,6 +77,29 @@ class LaunchCounter:
         self.plain_calls = 0
 
 
+def matmul_block_k(k: int) -> int:
+    """K tile of :func:`matmul`: the JAX wrapper's power of two, at most 128."""
+    return min(128, 1 << (k - 1).bit_length()) if k < 128 else 128
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, compensated: bool = False,
+           out_dtype=torch.float32) -> torch.Tensor:
+    """NTX wide-accumulation matmul (``repro/kernels/ops.py::matmul`` on its
+    kernel route): the kernel for CUDA tensors, its plain version for CPU tensors.
+
+    K tiles are the JAX wrapper's power-of-two block of at most 128
+    (:func:`matmul_block_k`). The JAX wrapper pads M, N and K to whole
+    blocks and slices the result; here the kernel and its plain version mask
+    the ragged edges instead, which gives the same sums (zeros change neither
+    ``acc`` nor 2Sum) without the copies. The output tiles set no result, so
+    only K's block is chosen.
+    """
+    from repro_torch.kernels import ntx_matmul  # looked up at call time
+
+    return ntx_matmul.tiled_matmul(a, b, block_k=matmul_block_k(a.shape[-1]),
+                                   out_dtype=out_dtype, compensated=compensated)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
               window: int | None = None, sm_scale: float | None = None, q_offset: int = 0,
               kv_valid_len: int | None = None) -> torch.Tensor:

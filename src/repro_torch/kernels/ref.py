@@ -1,12 +1,50 @@
-"""Sequential references for the port's kernels (from ``repro/kernels/ref.py``).
+"""References for the port's kernels (from ``repro/kernels/ref.py``).
 
-Slow and literal: the tests and ``chip_smoke.py`` hold the kernels and
-their chunked plain versions against these.
+Dense or sequential and literal: the tests and ``chip_smoke.py`` hold the
+kernels and their plain versions against these.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ops import strict_fp32
+from repro_torch.kernels.streaming import im2col, pad_hw
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
+    """fp32 product with an fp32 sum (TF32 off on the card), cast to ``out_dtype``."""
+    strict_fp32()
+    return torch.matmul(a.float(), b.float()).to(out_dtype)
+
+
+def matmul_ref64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The paper's common baseline: the product in fp64, on the operands' device."""
+    return torch.matmul(a.double(), b.double())
+
+
+def conv2d_ref(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+               padding: int = 0) -> torch.Tensor:
+    """NHWC x HWIO conv in fp32 (fp64 for fp64 operands), output in x's dtype.
+
+    On the CPU through ``F.conv2d``; on the card through a plain im2col
+    product, so that cuDNN is not the oracle of a kernel measured against it.
+    """
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf, wf = x.to(ct), w.to(ct)
+    kh, kw, cin, cout = w.shape
+    if x.device.type == "cpu":
+        y = F.conv2d(xf.permute(0, 3, 1, 2), wf.permute(3, 2, 0, 1), stride=stride,
+                     padding=padding).permute(0, 2, 3, 1)
+    else:
+        strict_fp32()
+        n, h, wid, _ = x.shape
+        oh = (h + 2 * padding - kh) // stride + 1
+        ow = (wid + 2 * padding - kw) // stride + 1
+        cols = im2col(pad_hw(xf, padding, padding), kh, kw, stride, oh, ow)
+        y = torch.matmul(cols, wf.reshape(kh * kw * cin, cout)).reshape(n, oh, ow, cout)
+    return y.to(x.dtype)
 
 
 def attention_ref(

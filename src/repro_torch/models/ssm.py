@@ -32,7 +32,10 @@ def _dims(cfg):
 
 
 def init_ssm_block(cfg, gen: torch.Generator | None, device, dtype=torch.bfloat16) -> ParamTree:
-    """The JAX block's parameters, same names, shapes and distributions."""
+    """The JAX block's parameters, same names, shapes and distributions.
+
+    As in JAX, where both come from one key, ``conv_wc`` equals ``conv_wb``.
+    """
     d = cfg.d_model
     d_inner, g, n = _dims(cfg)
     h = cfg.n_heads
@@ -58,9 +61,9 @@ def init_ssm_block(cfg, gen: torch.Generator | None, device, dtype=torch.bfloat1
         "w_dt": rnd((d, h), std),
         "conv_wx": rnd((_CONV_W, d_inner), 0.1),
         "conv_bx": zeros((d_inner,)),
-        "conv_wb": rnd((_CONV_W, g * n), 0.1),
+        "conv_wb": (conv_wb := rnd((_CONV_W, g * n), 0.1)),
         "conv_bb": zeros((g * n,)),
-        "conv_wc": rnd((_CONV_W, g * n), 0.1),
+        "conv_wc": conv_wb.clone(),
         "conv_bc": zeros((g * n,)),
         "a_log": torch.log(torch.arange(1, h + 1, dtype=torch.float32, device=device)),
         "dt_bias": dt + torch.log(-torch.expm1(-dt)),  # softplus^-1(dt)

@@ -50,7 +50,9 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.models.ssm", "repro_torch.models.transformer",
                 "repro_torch.models.lm", "repro_torch.configs",
                 "repro_torch.configs.mamba2_780m", "repro_torch.kernels.flash_attention",
-                "repro_torch.models.attention", "repro_torch.configs.qwen1_5_0_5b"):
+                "repro_torch.models.attention", "repro_torch.configs.qwen1_5_0_5b",
+                "repro_torch.core.precision", "repro_torch.core.tiling",
+                "repro_torch.kernels.ntx_matmul", "repro_torch.kernels.conv2d"):
         assert mod in res["modules"]
 
 

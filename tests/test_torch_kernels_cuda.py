@@ -17,8 +17,8 @@ import pytest
 import torch
 
 from repro_torch.convert import params_from_jax
-from repro_torch.kernels import flash_attention, fused, ssd_scan, streaming
-from repro_torch.kernels.ref import attention_ref, ssd_ref
+from repro_torch.kernels import conv2d, flash_attention, fused, ntx_matmul, ops, ssd_scan, streaming
+from repro_torch.kernels.ref import attention_ref, conv2d_ref, matmul_ref64, ssd_ref
 from repro_torch.lower import (
     MaxPool2dSpec,
     RegionSpec,
@@ -383,3 +383,139 @@ def test_qwen_prefill_on_converted_params(cuda_device):
     run = subprocess.run([sys.executable, "-c", textwrap.dedent(_FRESH_QWEN_PREFILL)], env=env,
                          capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stdout + run.stderr
+
+
+# ntx_matmul: tests/kernels/test_ntx_matmul.py's shapes, a long K and a GoogLeNet 1x1
+MM_SHAPES = [(128, 128, 128), (128, 128, 512), (256, 128, 384), (64, 64, 64), (100, 70, 333),
+             (8, 200, 40), (300, 65, 2048), (1568, 64, 256)]
+
+
+def _mm_inputs(m, n, k, dtype, device, seed=0):
+    rng = np.random.RandomState(m + n + k + seed)
+    return (torch.as_tensor(rng.randn(m, k), dtype=torch.float32).to(device, dtype),
+            torch.as_tensor(rng.randn(k, n), dtype=torch.float32).to(device, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compensated", [False, True], ids=["plain", "comp"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,n,k", MM_SHAPES)
+def test_ntx_matmul_kernel_matches_plain(cuda_device, m, n, k, dtype, compensated):
+    """ops.matmul's kernel vs the plain version in the same mode, at the band of
+    tests/kernels/test_ntx_matmul.py, and the same bits on a second run."""
+    a, b = _mm_inputs(m, n, k, dtype, cuda_device)
+    ntx_matmul.COUNTER.reset()
+    got = ops.matmul(a, b, compensated=compensated)
+    again = ops.matmul(a, b, compensated=compensated)
+    assert (ntx_matmul.COUNTER.launches, ntx_matmul.COUNTER.plain_calls) == (2, 0)
+    want = ntx_matmul.ntx_matmul_torch(a, b, block_k=ops.matmul_block_k(k),
+                                       compensated=compensated)
+    tol = (2e-5 if dtype == torch.float32 else 2e-2) * k ** 0.5
+    torch.testing.assert_close(got, want, atol=tol, rtol=1e-2)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ntx_matmul_compensation_is_exact(cuda_device, dtype):
+    """Integers below 256, K = 1,728 in tiles of 128: the compensated kernel
+    is the fp64 product rounded once; the plain-mode kernel is not."""
+    rng = np.random.RandomState(3)
+    a = torch.as_tensor(rng.randint(0, 256, (300, 1728)), dtype=dtype, device=cuda_device)
+    b = torch.as_tensor(rng.randint(0, 256, (1728, 70)), dtype=dtype, device=cuda_device)
+    exact = matmul_ref64(a, b).float()
+    comp = ops.matmul(a, b, compensated=True)
+    assert torch.equal(comp, exact)
+    assert torch.equal(comp, ntx_matmul.ntx_matmul_torch(a, b, block_k=128, compensated=True))
+    assert not torch.equal(ops.matmul(a, b), exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_k", [1, 16, 100, 1728, 4096])
+def test_ntx_matmul_kernel_block_k(cuda_device, block_k):
+    """K tiles of any width, a ragged last one, and one wider than K."""
+    a, b = _mm_inputs(130, 70, 1728, torch.float32, cuda_device, seed=block_k)
+    for comp in (False, True):
+        got = ntx_matmul.tiled_matmul(a, b, block_k=block_k, compensated=comp)
+        want = ntx_matmul.ntx_matmul_torch(a, b, block_k=block_k, compensated=comp)
+        torch.testing.assert_close(got, want, atol=2e-5 * 1728 ** 0.5, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_ntx_matmul_kernel_views_out_dtype_and_refusals(cuda_device):
+    a, b = _mm_inputs(257, 130, 45, torch.float32, cuda_device)
+    at, bt = a.T.contiguous().T, b.T.contiguous().T  # column-major views
+    assert torch.equal(ops.matmul(at, bt), ops.matmul(a, b))
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = _mm_inputs(100, 70, 333, dtype, cuda_device)
+        for comp in (False, True):
+            got = ops.matmul(a, b, compensated=comp, out_dtype=torch.bfloat16)
+            want = ntx_matmul.ntx_matmul_torch(a, b, block_k=128, compensated=comp,
+                                               out_dtype=torch.bfloat16)
+            assert got.dtype == torch.bfloat16
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2 * 333 ** 0.5,
+                                       rtol=1e-2)
+    with pytest.raises(TypeError):
+        ops.matmul(a.float(), b.bfloat16())
+    with pytest.raises(TypeError):
+        ops.matmul(a.half(), b.half())
+    with pytest.raises(ValueError):
+        ops.matmul(a, b.cpu())
+
+
+# conv2d_ntx: tests/kernels/test_conv2d.py's cases and a GoogLeNet-like stem
+CONV_CASES = [(1, 12, 12, 3, 3, 3, 8, 1), (2, 16, 10, 4, 3, 3, 8, 2), (1, 9, 9, 3, 1, 1, 16, 1),
+              (1, 14, 14, 3, 5, 5, 4, 2), (2, 11, 13, 2, 3, 2, 4, 3), (1, 8, 8, 8, 7, 7, 4, 1),
+              (2, 38, 38, 3, 7, 7, 64, 2), (2, 16, 16, 64, 3, 3, 192, 1)]
+
+
+def _conv_inputs(n, h, w, cin, kh, kw, cout, stride, dtype, device):
+    rng = np.random.RandomState(h * 10 + kh + stride)
+    x = torch.as_tensor(rng.randn(n, h, w, cin), dtype=torch.float32).to(device, dtype)
+    wt = torch.as_tensor(rng.randn(kh, kw, cin, cout) * 0.2, dtype=torch.float32)
+    return x, wt.to(device, dtype)
+
+
+def _conv_close(got, want):
+    if want.dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        assert _rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,h,w,cin,kh,kw,cout,stride", CONV_CASES)
+def test_conv2d_kernel_matches_plain(cuda_device, n, h, w, cin, kh, kw, cout, stride, dtype):
+    x, wt = _conv_inputs(n, h, w, cin, kh, kw, cout, stride, dtype, cuda_device)
+    conv2d.COUNTER.reset()
+    got = conv2d.conv2d_ntx(x, wt, stride=stride, tile_h=4)
+    assert (conv2d.COUNTER.launches, conv2d.COUNTER.plain_calls) == (1, 0)
+    _conv_close(got, conv2d.conv2d_ntx_torch(x, wt, stride=stride, tile_h=4))
+    _conv_close(got, conv2d_ref(x.double(), wt.double(), stride=stride).to(dtype))
+    assert torch.equal(got, conv2d.conv2d_ntx(x, wt, stride=stride, tile_h=4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_h", [1, 3, 8, 100])
+def test_conv2d_kernel_row_tiles_and_strided_input(cuda_device, tile_h):
+    """Every tile_h gives the same bits (each output sums in one order), and an
+    NHWC view of NCHW data gives the bits of its contiguous copy."""
+    rng = np.random.RandomState(tile_h)
+    x = torch.as_tensor(rng.randn(2, 3, 45, 45), dtype=torch.float32,
+                        device=cuda_device).permute(0, 2, 3, 1)
+    wt = torch.as_tensor(rng.randn(7, 7, 3, 70) * 0.2, dtype=torch.float32, device=cuda_device)
+    got = conv2d.conv2d_ntx(x, wt, stride=2, tile_h=tile_h)
+    assert torch.equal(got, conv2d.conv2d_ntx(x.contiguous(), wt, stride=2, tile_h=8))
+    _conv_close(got, conv2d.conv2d_ntx_torch(x, wt, stride=2, tile_h=tile_h))
+
+
+@pytest.mark.cuda
+def test_conv2d_kernel_refuses_mixed_devices_and_types(cuda_device):
+    x, wt = _conv_inputs(1, 12, 12, 3, 3, 3, 8, 1, torch.float32, cuda_device)
+    with pytest.raises(ValueError):
+        conv2d.conv2d_ntx(x, wt.cpu())
+    with pytest.raises(TypeError):
+        conv2d.conv2d_ntx(x, wt.bfloat16())
+    with pytest.raises(TypeError):
+        conv2d.conv2d_ntx(x.half(), wt.half())

@@ -118,6 +118,21 @@ def test_init_lm_matches_jax_shapes_dtypes_and_constants(name):
     assert float(own["embed"].std()) == pytest.approx(0.02, rel=0.05)
 
 
+def test_init_lm_ties_conv_wc_to_conv_wb_as_jax_does():
+    """JAX draws conv_wb and conv_wc from one key, so they are equal; so are the port's."""
+    jcfg = JAX_CONFIGS["mamba2_780m_reduced"]
+    _, np_params = _params(jcfg)
+    jblock = np_params["decoder"]["units"][0]["ssm"]  # layers stacked on axis 0
+    np.testing.assert_array_equal(jblock["conv_wc"], jblock["conv_wb"])
+    own = dict(lm.init_lm(_port_config(jcfg, torch.float32), seed=0,
+                          device="cpu").named_parameters())
+    wb = {k: v for k, v in own.items() if k.endswith(".conv_wb")}
+    assert len(wb) == jcfg.n_layers
+    for k, v in wb.items():
+        assert torch.equal(own[k[: -len("conv_wb")] + "conv_wc"], v), k
+    assert not torch.equal(*list(wb.values())[:2])  # layers still differ
+
+
 def test_lm_params_from_jax_unstacks_layers_and_checks_names():
     jcfg = JAX_CONFIGS["ssm_g2"]
     cfg = _port_config(jcfg, torch.float32)
