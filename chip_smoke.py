@@ -18,7 +18,8 @@ main path, drives the main paths and checks that each went through its kernels:
 * ``repro_torch.models.lm.prefill`` of Qwen1.5-0.5B at full width and
   depth (24 attention + MLP layers, d_model 1024, 16 heads of 64, vocab
   151,936) on 2 x 2,048 tokens, in bf16 and in fp32 (the flash-attention
-  kernel, 24 launches per prefill);
+  kernels, 24 launches per prefill: bf16 on the tensor-core kernel,
+  fp32 on the FFMA kernel);
 * the NTX kernel API at the paper's GoogLeNet layer widths, batch 32:
   ``repro_torch.kernels.ops.matmul`` (plain and compensated, fp32 and bf16)
   on the four layers' im2col products and on 1024^3 (the NTX matmul
@@ -65,6 +66,11 @@ BLOCK_TOL = 1e-2
 # bf16 max|got - want| <= 1e-2 max|want| (o rounds once: at most 2**-8 of it)
 ATTN_F32 = {"atol": 2e-5, "rtol": 1e-3}
 ATTN_BF16 = 1e-2
+# rounded-once gate (bf16): at most this share of o's elements may differ from
+# the fp64 attention of the same operands rounded once to bf16. p in fp32
+# moves about 0.02 %, p as two bf16 terms about 0.2 %, p as one bf16 term
+# about 38 % (the CPU emulation of tests/test_torch_attention_wgmma.py)
+ROUNDED_ONCE = 1e-2
 # Qwen1.5-0.5B prefill: batch x tokens, ids below the vocab 151,936
 QWEN_BATCH, QWEN_SEQ, QWEN_TOKEN_HIGH = 2, 2048, 151_936
 # the paper's GoogLeNet conv layers (Tables 2-4; CONV_LAYERS["googlenet"] of
@@ -164,6 +170,13 @@ def build_kernels():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name}: {line.strip()}")
+    # the tensor-core attention kernel must run on wgmma (HGMMA) and TMA (UTMALDG)
+    sass = subprocess.run([str(Path(build.nvcc_path()).parent / "cuobjdump"), "-sass",
+                           str(paths["flash_attention_wgmma"])],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    print(f"  flash_attention_wgmma SASS: {counts}")
+    assert all(counts.values()), f"flash_attention_wgmma lacks wgmma or TMA: {counts}"
 
 
 def main_path_graph_inputs(device):
@@ -651,13 +664,15 @@ def control_ssd(kind: str):
     return {"scores": scores_bf16, "y_e5m2": y_e5m2}[kind]
 
 
-def _prefill_runs(params, tokens, cfg, ctx, mod, n_launch: int, warm: int, launch_gate):
+def _prefill_runs(params, tokens, cfg, ctx, mod, n_launch: int, warm: int, launch_gate,
+                  entry: str | None = None):
     """One counted prefill, one through the plain version, ``warm`` timed ones.
 
     ``mod`` is the kernel module of the path (its wrapper is counted,
     recorded, timed and routed to its plain version). Every launch of the
     counted prefill is then held against the plain version on its own
     operands (the layer's real activations) by ``launch_gate(calls, dtype)``.
+    With ``entry``, every launch of the counted prefill must be of that C entry.
     """
     import torch
 
@@ -673,10 +688,14 @@ def _prefill_runs(params, tokens, cfg, ctx, mod, n_launch: int, warm: int, launc
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     counts = (mod.COUNTER.launches, mod.COUNTER.plain_calls)
-    print(f"  {dtype}: {name} launches / plain calls {counts}; first prefill "
+    entries = dict(mod.COUNTER.entries)
+    print(f"  {dtype}: {name} launches / plain calls {counts}"
+          f"{f' by entry {entries}' if entries else ''}; first prefill "
           f"{first * 1e3:.1f} ms; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     assert counts == (n_launch, 0), f"{dtype}: expected {n_launch} launches, 0 plain calls"
+    assert entry is None or entries == {entry: n_launch}, \
+        f"{dtype}: expected {n_launch} launches of {entry}, got {entries}"
     assert logits.shape == (*tokens.shape, cfg.vocab_size) and logits.dtype == torch.float32
     assert bool(torch.isfinite(logits).all()), f"{dtype}: non-finite logits"
     launch_gate(calls, dtype)
@@ -704,7 +723,8 @@ def _prefill_runs(params, tokens, cfg, ctx, mod, n_launch: int, warm: int, launc
 def profile_prefill(params, tokens, cfg, ctx, warm_wall_ms: float):
     """Device time of one warm prefill by kernel and by kind, from torch.profiler.
 
-    Kinds: the port's kernels (``attn_kernel``, ``ssd_kernel``), matrix
+    Kinds: the port's kernels (``attn_kernel``, ``attn_wgmma_kernel``,
+    ``ssd_kernel``), matrix
     products (cuBLAS), and everything else (element-wise passes, reductions,
     copies). The device's idle share is 1 - (sum of kernel times) / the
     warm wall measured without the profiler.
@@ -728,7 +748,7 @@ def profile_prefill(params, tokens, cfg, ctx, warm_wall_ms: float):
         return
 
     def kind(name):
-        if "attn_kernel" in name or "ssd_kernel" in name:
+        if any(t in name for t in ("attn_kernel", "attn_wgmma_kernel", "ssd_kernel")):
             return "port kernel"
         if any(t in name.lower() for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
             return "matmul (cuBLAS)"
@@ -972,12 +992,14 @@ def attention_inputs(b, hq, hkv, sq, skv, d, dtype, device, seed: int, *,
 
 
 def check_attention(smoke: Smoke, device, seq: int = QWEN_SEQ):
-    """flash_attention vs its plain version and the dense attention_ref."""
+    """flash_attention vs its plain version and the dense attention_ref; bf16
+    at D 64 / 128 (the tensor-core kernel) also through the rounded-once gate."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.kernels import flash_attention_wgmma as wgmma
+    from repro_torch.kernels.ref import attention_ref, rounded_once_share
 
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # (label, (B, Hq, Hkv, Sq, Skv, D), window, dtype, seed)
@@ -992,11 +1014,13 @@ def check_attention(smoke: Smoke, device, seq: int = QWEN_SEQ):
     ]
     worst, outs = 0.0, {}
     print(f"{'case':>26} {'max|o|':>8} {'kernel-plain':>12} {'kernel-ref':>11} "
-          f"{'plain-ref':>10}  (in units of the gate)")
+          f"{'plain-ref':>10}  (in units of the gate)  entry")
     for label, shape, window, dtype, seed in cases:
         q, k, v = attention_inputs(*shape, dtype, device, seed)
         kw = {"causal": True, "window": window}
+        fa.COUNTER.reset()
         got = fa.flash_attention(q, k, v, **kw)
+        entries = dict(fa.COUNTER.entries)
         want = fa.flash_attention_torch(q, k, v, **kw)
         dense = attention_ref(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
@@ -1004,22 +1028,30 @@ def check_attention(smoke: Smoke, device, seq: int = QWEN_SEQ):
         outs[label] = got
         worst = max(worst, max_abs(got, want))
         print(f"{label:>26} {float(want.float().abs().max()):>8.4f} {e_plain:>12.3f} "
-              f"{e_ref:>11.3f} {attn_gate(want, dense):>10.3f}")
+              f"{e_ref:>11.3f} {attn_gate(want, dense):>10.3f}  {', '.join(entries)}")
+        assert entries == {fa.entry(dtype, shape[5]): 1}, f"{label}: launched {entries}"
         assert bool(torch.isfinite(got).all()), f"{label}: non-finite output"
         assert got.dtype == dtype and got.shape == q.shape, f"{label}: {got.dtype} {got.shape}"
         assert e_plain <= 1 and e_ref <= 1, f"{label}: kernel vs plain {e_plain:.3f}, vs ref {e_ref:.3f} of the gate"
+        if fa.entry(dtype, shape[5]) == wgmma.ENTRY:
+            share = rounded_once_share(got, q, k, v, **kw)
+            print(f"{'':>26} rounded-once share {share:.4%} (gate {ROUNDED_ONCE:.0%}); "
+                  f"plain version {rounded_once_share(want, q, k, v, **kw):.4%}")
+            assert share <= ROUNDED_ONCE, f"{label}: rounded-once share {share:.4%}"
     none = outs["no visible key f32"]
     assert not bool(none[:, :, 95:].any()), "rows with no visible key are not exactly 0"
     assert bool((none[:, :, :95].abs().amax(dim=-1) > 0).all())
     print("  rows >= 95 with no visible key: exactly 0")
 
-    q, k, v = attention_inputs(2, 16, 16, seq, seq, 64, f32, device, 0, layout="contiguous")
-    same = fa.flash_attention(q, k, v)
-    again = fa.flash_attention(*attention_inputs(2, 16, 16, seq, seq, 64, f32, device, 0))
-    assert torch.equal(same, outs["qwen prefill f32"]), \
-        "strided and contiguous operands gave different bits"
-    assert torch.equal(again, outs["qwen prefill f32"]), "two runs gave different bits"
-    print("  strided == contiguous and run == run: identical bits")
+    for label, shape, dtype, seed in (("qwen prefill f32", (2, 16, 16, seq, seq, 64), f32, 0),
+                                      ("qwen prefill bf16", (2, 16, 16, seq, seq, 64), bf16, 1),
+                                      ("GQA 32/8 D 128 bf16", (1, 32, 8, seq, seq, 128), bf16, 2)):
+        same = fa.flash_attention(*attention_inputs(*shape, dtype, device, seed,
+                                                    layout="contiguous"))
+        again = fa.flash_attention(*attention_inputs(*shape, dtype, device, seed))
+        assert torch.equal(same, outs[label]), f"{label}: strided and contiguous operands differ"
+        assert torch.equal(again, outs[label]), f"{label}: two runs gave different bits"
+    print("  qwen f32 / bf16, GQA D 128 bf16: strided == contiguous and run == run, identical bits")
 
     for label, kind in (("qwen prefill f32", "qk_bf16"), ("qwen prefill f32", "p_bf16"),
                         ("qwen prefill bf16", "o_e5m2")):
@@ -1030,7 +1062,18 @@ def check_attention(smoke: Smoke, device, seq: int = QWEN_SEQ):
         print(f"  control {kind} on {label}: {ctl:.3f} of the gate, "
               f"{'rejected' if ctl > 1 else 'passes'}")
         assert ctl > 1, f"the {dtype} gate let the {kind} control through"
+    q, k, v = attention_inputs(2, 16, 16, seq, seq, 64, bf16, device, 1)
+    ctl = rounded_once_share(control_attention("p_bf16")(q, k, v), q, k, v)
+    print(f"  control p_bf16 (one bf16 term of p) on qwen prefill bf16: rounded-once share "
+          f"{ctl:.4%}, {'rejected' if ctl > ROUNDED_ONCE else 'passes'}")
+    assert ctl > ROUNDED_ONCE, "the rounded-once gate let the p_bf16 control through"
 
+    # the FFMA bf16 entry at D 64 (still the kernel at D 16, 32 and 256), held
+    # against the plain version and timed beside the tensor-core kernel
+    ffma = fa.launch("flash_attention_bf16", q, k, v)
+    e_ffma = attn_gate(ffma, fa.flash_attention_torch(q, k, v))
+    print(f"  FFMA bf16 entry at the qwen shape vs plain: {e_ffma:.3f} of the gate")
+    assert e_ffma <= 1, f"FFMA bf16 entry vs plain {e_ffma:.3f} of the gate"
     times = {}
     for dtype in (f32, bf16):
         q, k, v = attention_inputs(2, 16, 16, seq, seq, 64, dtype, device, 1)
@@ -1044,14 +1087,16 @@ def check_attention(smoke: Smoke, device, seq: int = QWEN_SEQ):
         bnd, by = bound_ms(nbytes, flops, str(dtype).split(".")[-1])
         ms, plain, lib = times[dtype]
         print(f"flash_attention at B 2, H 16, S {seq}, D 64, causal, {dtype}: kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound {bnd:.5f} ms "
-              f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP, {by}; at the fp32 rate the "
-              f"kernel computes in {bound_ms(nbytes, flops)[0]:.5f} ms)")
+              f"({fa.entry(dtype, 64)}) {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, "
+              f"bound {bnd:.5f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP, {by}; at the "
+              f"fp32 rate the kernel computes in {bound_ms(nbytes, flops)[0]:.5f} ms)")
+    ffma_ms = time_ms(lambda: fa.launch("flash_attention_bf16", q, k, v))
+    print(f"  the FFMA bf16 entry (flash_attention.cu) at the same bf16 shape: {ffma_ms:.4f} ms")
     ms, plain, lib = times[bf16]
     smoke.kernels["flash_attention"] = {
         "name": "flash_attention",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention.py:113",
         "launches": None,
         "max_abs_err": worst,
@@ -1060,22 +1105,30 @@ def check_attention(smoke: Smoke, device, seq: int = QWEN_SEQ):
         "bound_ms": bnd,
         "bound_by": by,
         "library_ms": lib,
+        "at": "B 2, H 16, S 2,048, D 64, causal, bf16",
     }
 
 
 def _attn_launch_gate(calls, dtype):
-    """Each attention launch vs the plain version; a control on layer 0 must fail."""
-    import torch
+    """Each attention launch vs the plain version; a control on layer 0 must fail.
 
+    Launches of the tensor-core kernel also read layer 0 through the
+    rounded-once gate, with the p_bf16 control, which it must reject.
+    """
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_wgmma as wgmma
+    from repro_torch.kernels.ref import rounded_once_share
 
     kinds = CONTROLS[str(dtype).split(".")[-1]]
-    units, ctl = [], {}
+    units, ctl, shares = [], {}, None
     for i, (args, kw, o) in enumerate(calls):
         want = fa.flash_attention_torch(*args, **kw)
         units.append(attn_gate(o, want))
         if i == 0:
             ctl = {kind: attn_gate(control_attention(kind)(*args, **kw), want) for kind in kinds}
+            if fa.entry(dtype, args[0].shape[3]) == wgmma.ENTRY:
+                shares = [rounded_once_share(x, *args, **kw) for x in
+                          (o, want, control_attention("p_bf16")(*args, **kw))]
     worst = max(range(len(units)), key=units.__getitem__)
     print(f"  {dtype}: attention kernel vs plain on each layer's own operands, in units of "
           f"the gate: worst {units[worst]:.3f} (layer {worst}), median "
@@ -1083,6 +1136,12 @@ def _attn_launch_gate(calls, dtype):
     assert units[worst] <= 1, f"{dtype}: layer {worst} attention kernel vs plain {units[worst]:.3f}"
     for kind, u in ctl.items():
         assert u > 1, f"the {dtype} per-layer gate let the {kind} control through"
+    if shares is not None:
+        print(f"  {dtype}: layer 0's launch, rounded-once share {shares[0]:.4%} (gate "
+              f"{ROUNDED_ONCE:.0%}); plain version {shares[1]:.4%}; control p_bf16 "
+              f"{shares[2]:.4%}, {'rejected' if shares[2] > ROUNDED_ONCE else 'passes'}")
+        assert shares[0] <= ROUNDED_ONCE, f"layer 0 rounded-once share {shares[0]:.4%}"
+        assert shares[2] > ROUNDED_ONCE, "the layer-0 rounded-once gate let p_bf16 through"
 
 
 def _attn_block_gate(params, tokens, cfg):
@@ -1124,13 +1183,15 @@ def qwen_prefill_path(smoke: Smoke, device, cfg=None, batch: int = QWEN_BATCH,
                       seq: int = QWEN_SEQ, token_high: int = QWEN_TOKEN_HIGH, warm: int = 3):
     """lm.prefill of Qwen1.5-0.5B at full width and depth, bf16 then fp32.
 
-    fp32 runs on the bf16 weights widened. Gates: in both dtypes each of the
-    24 attention launches against the plain version on its own operands,
-    and layer 0's attention_block (ATTN_F32 / ATTN_BF16); fp32 logits,
-    kernel vs plain attention, within 1e-4 of max|logits|. A control is
-    read through each gate and must fail: q and k rounded to bf16 (fp32
-    gates), p rounded to bf16 before p v (fp32 gates), o rounded to fp8
-    e5m2 (bf16 gates).
+    fp32 runs on the bf16 weights widened. bf16 launches only the tensor-core
+    entry, fp32 only the FFMA one (24 of 24 each). Gates: in both dtypes each
+    of the 24 attention launches against the plain version on its own
+    operands, and layer 0's attention_block (ATTN_F32 / ATTN_BF16); in bf16
+    layer 0's launch through the rounded-once gate; fp32 logits, kernel vs
+    plain attention, within 1e-4 of max|logits|. A control is read through
+    each gate and must fail: q and k rounded to bf16 (fp32 gates), p rounded
+    to bf16 before p v (fp32 gates and the rounded-once gate), o rounded to
+    fp8 e5m2 (bf16 gates).
     """
     import numpy as np
     import torch
@@ -1155,13 +1216,13 @@ def qwen_prefill_path(smoke: Smoke, device, cfg=None, batch: int = QWEN_BATCH,
     print(f"  init_lm(seed=0): {sum(p.numel() for p in params.parameters()):,} parameters, "
           f"{cfg.dtype}, in {time.perf_counter() - t0:.2f} s")
     k16, p16, launches, wall = _prefill_runs(params, tokens, cfg, ctx, fa, n_attn, warm,
-                                             _attn_launch_gate)
+                                             _attn_launch_gate, fa.entry(cfg.dtype, cfg.head_dim))
     profile_prefill(params, tokens, cfg, ctx, wall)
     _attn_block_gate(params, tokens, cfg)
     params.to(torch.float32)  # in place: the same weights, widened
     cfg32 = cfg.with_(dtype=torch.float32)
     k32, p32, _, wall = _prefill_runs(params, tokens, cfg32, ctx, fa, n_attn, 1,
-                                      _attn_launch_gate)
+                                      _attn_launch_gate, fa.entry(cfg32.dtype, cfg.head_dim))
     profile_prefill(params, tokens, cfg32, ctx, wall)
     _attn_block_gate(params, tokens, cfg32)
     scale = float(p32.abs().max())

@@ -1,9 +1,15 @@
 """Flash attention forward (``repro/kernels/flash_attention.py``).
 
-:func:`flash_attention` launches the hand-written Hopper kernel
-``csrc/flash_attention.cu`` on CUDA tensors and runs the plain version
-:func:`flash_attention_torch` on CPU tensors; anything else raises. Both
-compute what the TPU kernel's ``_attn_kernel`` computes: scores
+:func:`flash_attention` launches a hand-written Hopper kernel on CUDA
+tensors and runs the plain version :func:`flash_attention_torch` on CPU
+tensors; anything else raises. :func:`entry` picks the kernel from the
+operands' dtype and head dim: bf16 at D 64 or 128 goes to the tensor-core
+kernel ``csrc/flash_attention_wgmma.cu`` (``wgmma`` products, TMA loads, p
+in the ``p v`` product as two bf16 terms; see
+:mod:`repro_torch.kernels.flash_attention_wgmma`), every fp32 call and bf16
+at D 16, 32 or 256 to the FFMA kernel ``csrc/flash_attention.cu``. There is
+no fallback from one to the other. All compute what the TPU kernel's
+``_attn_kernel`` computes: scores
 ``(q . k) * sm_scale`` in fp32, the KV-tail, causal and sliding-window masks
 with ``NEG_INF = -1e30``, the online max, sum and accumulator in fp32 with
 ``p`` kept in fp32 in the ``p v`` product, rows with no visible key giving
@@ -13,9 +19,8 @@ through their strides, so the transposed views of ``attention_block`` need
 no copy.
 
 The plain version walks KV blocks of :data:`BLOCK_KV` (the TPU kernel's
-blocking on the prefill path) with all query rows at once. The kernel uses
-tiles of its own (:data:`_BQ` x :data:`_BKV`), so the two sum in different
-orders.
+blocking on the prefill path) with all query rows at once. The kernels use
+tiles of their own (64 query rows x 64 keys), so they sum in other orders.
 """
 
 from __future__ import annotations
@@ -25,15 +30,21 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention_wgmma as wgmma
 from repro_torch.kernels.ops import LaunchCounter, use_kernel
 
 COUNTER = LaunchCounter("flash_attention")
 NEG_INF = -1e30
-_LIB = "flash_attention"
-_BQ, _BKV = 64, 64  # the kernel's tile (BQ, BKV in flash_attention.cu)
+_BQ, _BKV = 64, 64  # the FFMA kernel's tile (BQ, BKV in flash_attention.cu)
 BLOCK_KV = 512  # the plain version's KV block
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the FFMA kernel's template instances
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
+# C entry -> the library (csrc/<name>.cu) that exports it
+ENTRIES = {
+    "flash_attention_f32": "flash_attention",
+    "flash_attention_bf16": "flash_attention",
+    wgmma.ENTRY: wgmma.LIB,
+}
 
 
 def _check(q, k, v) -> None:
@@ -87,18 +98,65 @@ def flash_attention_torch(q, k, v, *, causal: bool = True, window: int | None = 
 
 
 def smem_bytes(d: int) -> int:
-    """Dynamic shared memory of one kernel block (the layout in flash_attention.cu)."""
+    """Dynamic shared memory of one FFMA kernel block (the layout in flash_attention.cu)."""
     return 4 * (_BQ * (d + 1) + _BKV * (d + 1) + _BKV * d + _BQ * (_BKV + 1) + 3 * _BQ)
 
 
-def _entry(dtype: torch.dtype):
-    name = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}[dtype]
-    fn = getattr(build.library(_LIB), name)
+def entry(dtype: torch.dtype, d: int) -> str:
+    """The C entry a CUDA call launches, from q's dtype and the head dim.
+
+    bf16 at D 64 or 128 -> ``flash_attention_bf16_wgmma`` (tensor cores);
+    fp32 at any head dim of :data:`HEAD_DIMS` -> ``flash_attention_f32`` and
+    bf16 at D 16, 32 or 256 -> ``flash_attention_bf16`` (FFMA). Other
+    dtypes raise ``TypeError``, other head dims ``ValueError``.
+    """
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 q/k/v, got {dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel: head dim {d} is not one of {HEAD_DIMS}")
+    if dtype == torch.bfloat16 and d in wgmma.HEAD_DIMS:
+        return wgmma.ENTRY
+    return "flash_attention_f32" if dtype == torch.float32 else "flash_attention_bf16"
+
+
+def _fn(name: str):
+    fn = getattr(build.library(ENTRIES[name]), name)
     if fn.argtypes is None:
         # q, k, v, o, dims, sm_scale, stream
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch(name: str, q, k, v, *, causal: bool = True, window: int | None = None,
+           sm_scale: float | None = None) -> torch.Tensor:
+    """Launch C entry ``name`` on CUDA q, k, v of its dtype; o (B, Hq, Sq, D).
+
+    :func:`flash_attention` calls it with :func:`entry`'s choice; a caller
+    may name another entry of the operands' dtype (the FFMA bf16 kernel at
+    D 64, to time it). The tensor-core entry checks TMA's operand rules
+    (:func:`repro_torch.kernels.flash_attention_wgmma.tma_strides`).
+    """
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / d**0.5
+    if name == wgmma.ENTRY:
+        strides = [wgmma.tma_strides(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
+    else:
+        strides = [q.stride(), k.stride(), v.stride()]
+    o = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    dims = (ctypes.c_longlong * 21)(
+        b, hq, hkv, sq, skv, d, int(causal), int(window is not None),
+        0 if window is None else window, *strides[0], *strides[1], *strides[2],
+    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = _fn(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     ctypes.addressof(dims), float(sm_scale), stream)
+    build.check(ENTRIES[name], code, name)
+    COUNTER.launches += 1
+    COUNTER.entries[name] = COUNTER.entries.get(name, 0) + 1
+    return o
 
 
 def flash_attention(
@@ -114,23 +172,8 @@ def flash_attention(
     if not use_kernel(q, k, v):
         return flash_attention_torch(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
     _check(q, k, v)
-    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 q/k/v of one dtype, "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel: head dim {d} is not one of {HEAD_DIMS}")
-    if sm_scale is None:
-        sm_scale = 1.0 / d**0.5
-    o = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
-    dims = (ctypes.c_longlong * 21)(
-        b, hq, hkv, sq, skv, d, int(causal), int(window is not None),
-        0 if window is None else window, *q.stride(), *k.stride(), *v.stride(),
-    )
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = _entry(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                           ctypes.addressof(dims), float(sm_scale), stream)
-    build.check(_LIB, code, "flash_attention")
-    COUNTER.launches += 1
-    return o
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes q/k/v of one dtype, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    return launch(entry(q.dtype, q.shape[3]), q, k, v, causal=causal, window=window,
+                  sm_scale=sm_scale)

@@ -65,16 +65,19 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
 
 
 class LaunchCounter:
-    """Per-kernel counts: kernel launches and plain-version calls."""
+    """Per-kernel counts: kernel launches and plain-version calls; a wrapper
+    with more than one C entry also counts launches per entry."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
         self.plain_calls = 0
+        self.entries: dict[str, int] = {}
 
     def reset(self) -> None:
         self.launches = 0
         self.plain_calls = 0
+        self.entries = {}
 
 
 def matmul_block_k(k: int) -> int:

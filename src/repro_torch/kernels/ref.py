@@ -55,8 +55,10 @@ def attention_ref(
     causal: bool = True,
     window: int | None = None,
     sm_scale: float | None = None,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Dense softmax attention in fp32, GQA by repeating k and v; o in q's dtype.
+    """Dense softmax attention in fp32 (or ``compute_dtype``), GQA by
+    repeating k and v; o rounded once to q's dtype.
 
     Rows with no visible key give 0, as the flash kernel does. The decode
     offsets of the JAX oracle come with the decode slice.
@@ -66,9 +68,9 @@ def attention_ref(
     grp = hq // k.shape[1]
     if sm_scale is None:
         sm_scale = 1.0 / d**0.5
-    kf = k.float().repeat_interleave(grp, dim=1)
-    vf = v.float().repeat_interleave(grp, dim=1)
-    s = (q.float() @ kf.transpose(-1, -2)) * sm_scale
+    kf = k.to(compute_dtype).repeat_interleave(grp, dim=1)
+    vf = v.to(compute_dtype).repeat_interleave(grp, dim=1)
+    s = (q.to(compute_dtype) @ kf.transpose(-1, -2)) * sm_scale
     q_ids = torch.arange(sq, device=q.device)[:, None]
     kv_ids = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
@@ -79,6 +81,20 @@ def attention_ref(
     p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
     out = p @ vf
     return torch.where(mask.any(dim=-1)[:, None], out, 0.0).to(q.dtype)
+
+
+def rounded_once_share(o: torch.Tensor, q, k, v, **kw) -> float:
+    """The share of the elements of ``o`` that differ from the fp64 dense
+    attention of the same q, k, v rounded once to o's dtype.
+
+    For bf16 an attention that keeps p in fp32 differs in a few elements in
+    ten thousand (sums in fp32 that land near a rounding boundary); one
+    that rounds p to bf16 before ``p v`` moves about two in five. The fp64
+    result reaches bf16 through fp32 (PyTorch's cast), a double rounding
+    that can move about 2**-16 of the elements.
+    """
+    want = attention_ref(q, k, v, compute_dtype=torch.float64, **kw).to(o.dtype)
+    return float((o != want).double().mean())
 
 
 def ssd_ref(

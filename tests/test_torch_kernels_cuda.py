@@ -18,7 +18,9 @@ import torch
 
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import conv2d, flash_attention, fused, ntx_matmul, ops, ssd_scan, streaming
-from repro_torch.kernels.ref import attention_ref, conv2d_ref, matmul_ref64, ssd_ref
+from repro_torch.kernels import flash_attention_wgmma as wgmma
+from repro_torch.kernels.ref import (attention_ref, conv2d_ref, matmul_ref64, rounded_once_share,
+                                     ssd_ref)
 from repro_torch.lower import (
     MaxPool2dSpec,
     RegionSpec,
@@ -350,6 +352,92 @@ def test_attention_kernel_refuses_bad_operands(cuda_device):
     q48, k48, v48 = _attn_inputs(1, 4, 2, 64, 64, 48, 0, cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention.flash_attention(q48, k48, v48)
+
+
+# the tensor-core entry (bf16 at D 64 / 128): GQA, a window, a KV tail of
+# 600 (9 x 64 + 24, in q and in kv), non-causal with Skv != Sq
+WGMMA_CASES = [
+    (1, 8, 2, 512, 512, 64, True, None),
+    (1, 32, 8, 1024, 1024, 128, True, None),
+    (1, 4, 4, 640, 640, 128, True, 200),
+    (1, 2, 2, 600, 600, 64, True, None),
+    (2, 2, 1, 128, 384, 128, False, None),
+]
+WGMMA_IDS = [f"b{c[0]}-h{c[1]}/{c[2]}-s{c[3]}/{c[4]}-d{c[5]}-{'c' if c[6] else 'nc'}-w{c[7]}"
+             for c in WGMMA_CASES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", WGMMA_CASES, ids=WGMMA_IDS)
+def test_wgmma_entry_matches_plain(cuda_device, b, hq, hkv, sq, skv, d, causal, window):
+    """bf16 through the tensor-core entry vs plain and attention_ref (1e-2 of
+    max|o|), the same bits run to run, and at most 1 % of o's elements off
+    the fp64 attention rounded once to bf16."""
+    q, k, v = _attn_inputs(b, hq, hkv, sq, skv, d, sq + skv + d, cuda_device, torch.bfloat16)
+    kw = {"causal": causal, "window": window}
+    flash_attention.COUNTER.reset()
+    got = flash_attention.flash_attention(q, k, v, **kw)
+    again = flash_attention.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.COUNTER.entries == {wgmma.ENTRY: 2}
+    assert flash_attention.COUNTER.plain_calls == 0
+    assert torch.equal(got, again)
+    _attn_close(got, flash_attention.flash_attention_torch(q, k, v, **kw))
+    _attn_close(got, attention_ref(q, k, v, **kw))
+    assert rounded_once_share(got, q, k, v, **kw) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", wgmma.HEAD_DIMS)
+def test_wgmma_entry_reads_strided_views(cuda_device, d):
+    """attention_block's (B,S,H,D) -> (B,H,S,D) views load by TMA with no copy."""
+    q, k, v = _attn_inputs(2, 8, 2, 256, 256, d, 3, cuda_device, torch.bfloat16)
+    qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    assert not (qv.is_contiguous() or kv.is_contiguous() or vv.is_contiguous())
+    got = flash_attention.flash_attention(qv, kv, vv, window=100)
+    want = flash_attention.flash_attention(q, k, v, window=100)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", wgmma.HEAD_DIMS)
+def test_wgmma_rows_with_no_visible_key_are_zero(cuda_device, d):
+    q, k, v = _attn_inputs(1, 4, 2, 256, 64, d, 4, cuda_device, torch.bfloat16)
+    flash_attention.COUNTER.reset()
+    got = flash_attention.flash_attention(q, k, v, causal=True, window=32)
+    torch.cuda.synchronize()
+    assert flash_attention.COUNTER.entries == {wgmma.ENTRY: 1}
+    assert not bool(got[:, :, 95:].any())
+    assert bool((got[:, :, :95].abs().amax(dim=-1) > 0).all())
+
+
+@pytest.mark.cuda
+def test_wgmma_entry_refuses_operands_tma_cannot_read(cuda_device):
+    q, k, v = _attn_inputs(1, 2, 2, 128, 128, 64, 0, cuda_device, torch.bfloat16)
+    wide = torch.zeros(1, 2, 128, 68, dtype=torch.bfloat16, device=cuda_device)[..., :64]
+    shifted = torch.zeros(2 * 128 * 64 + 1, dtype=torch.bfloat16,
+                          device=cuda_device)[1:].view(1, 2, 128, 64)
+    flash_attention.COUNTER.reset()
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        flash_attention.flash_attention(q, wide, v)
+    with pytest.raises(ValueError, match="16-byte-aligned base"):
+        flash_attention.flash_attention(q, k, shifted)
+    assert flash_attention.COUNTER.launches == 0
+
+
+@pytest.mark.cuda
+def test_attention_launches_are_counted_per_entry(cuda_device):
+    """fp32 on the FFMA entry at every head dim; bf16 on the tensor-core entry
+    at D 64 and 128 and on the FFMA bf16 entry at D 32 and 256."""
+    flash_attention.COUNTER.reset()
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 32), (torch.bfloat16, 64),
+                     (torch.bfloat16, 128), (torch.bfloat16, 256)):
+        flash_attention.flash_attention(*_attn_inputs(1, 2, 1, 128, 128, d, 1, cuda_device, dtype))
+    torch.cuda.synchronize()
+    assert flash_attention.COUNTER.entries == {
+        "flash_attention_f32": 1, "flash_attention_bf16": 2, wgmma.ENTRY: 2}
+    assert flash_attention.COUNTER.launches == 5
 
 
 _FRESH_QWEN_PREFILL = """
