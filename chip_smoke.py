@@ -24,7 +24,8 @@ main path, drives the main paths and checks that each went through its kernels:
   ``repro_torch.kernels.ops.matmul`` (plain and compensated, fp32 and bf16)
   on the four layers' im2col products and on 1024^3 (the NTX matmul
   kernel), then ``repro_torch.kernels.conv2d_ntx`` on the four layers in
-  fp32 and L1 in bf16 (the direct-convolution kernel).
+  fp32 and in bf16 (the direct-convolution kernels: bf16 L1-L3 on the
+  tensor-core kernel, L0 and fp32 on the FFMA kernel).
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` JSON line, and ``{"ok": true, "device": {...}}``.
@@ -36,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -97,6 +99,10 @@ COMP_SHAPE, COMP_HIGH = (1024, 1728, 192), 256
 # <= 1e-2 max|want| (y rounds once: at most 2**-9 of it)
 CONV_F32 = {"atol": 1e-4, "rtol": 1e-4}
 CONV_BF16 = 1e-2
+# bf16 conv2d_ntx is also held by the rounded-once gate: at most ROUNDED_ONCE
+# of y's elements may differ from the fp64 conv rounded once to bf16 (fp32
+# sums move a few in ten thousand; the conv that rounds its sum to bf16 after
+# every stage of 64 channels of a tap moves 40-75 %, tests/test_torch_conv2d_wgmma.py)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -114,6 +120,26 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of ``fn`` per call in ms: the kernels' own time under
+    torch.profiler over ``iters`` warm calls. CUDA events around back-to-back
+    calls also count the host's enqueue where it is longer than the device's
+    work; this leaves it out. NaN where the profiler sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / iters if total > 0 else float("nan")
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str = "float32") -> tuple[float, str]:
@@ -170,13 +196,16 @@ def build_kernels():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name}: {line.strip()}")
-    # the tensor-core attention kernel must run on wgmma (HGMMA) and TMA (UTMALDG)
-    sass = subprocess.run([str(Path(build.nvcc_path()).parent / "cuobjdump"), "-sass",
-                           str(paths["flash_attention_wgmma"])],
-                          capture_output=True, text=True, check=True, timeout=120).stdout
-    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-    print(f"  flash_attention_wgmma SASS: {counts}")
-    assert all(counts.values()), f"flash_attention_wgmma lacks wgmma or TMA: {counts}"
+    # the tensor-core kernels must run on wgmma (HGMMA) and TMA (UTMALDG); the
+    # conv's gather on cp.async (LDGSTS)
+    for name, ops in (("flash_attention_wgmma", ("HGMMA", "UTMALDG")),
+                      ("conv2d_ntx_wgmma", ("HGMMA", "UTMALDG", "LDGSTS"))):
+        sass = subprocess.run([str(Path(build.nvcc_path()).parent / "cuobjdump"), "-sass",
+                               str(paths[name])],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+        counts = {op: sass.count(op) for op in ops}
+        print(f"  {name} SASS: {counts}")
+        assert all(counts.values()), f"{name} lacks an instruction it is built on: {counts}"
 
 
 def main_path_graph_inputs(device):
@@ -1441,13 +1470,11 @@ def check_mm_controls(operands, outs, cases):
 
 
 def conv_cases(layers=GOOGLENET):
-    """(label, layer, dtype): every layer in fp32, L1 in bf16."""
+    """(label, layer, dtype): every layer in fp32 and in bf16."""
     import torch
 
-    cases = [(f"{layer[0]} float32", layer, torch.float32) for layer in layers]
-    cases += [(f"{layer[0]} bfloat16", layer, torch.bfloat16) for layer in layers
-              if layer[0] == "L1"]
-    return cases
+    return [(f"{layer[0]} {dtype_name(dt)}", layer, dt)
+            for dt in (torch.float32, torch.bfloat16) for layer in layers]
 
 
 def conv_gate(got, want, dtype) -> float:
@@ -1460,22 +1487,50 @@ def conv_gate(got, want, dtype) -> float:
     return float(d.max()) / (CONV_BF16 * float(want.double().abs().max()))
 
 
+def control_conv_bf16_stages(x, w, stride: int):
+    """The control of the rounded-once gate: the plain (u, v, ci) loop with
+    its fp32 accumulator rounded to bf16 after every stage of at most 64
+    input channels of one tap (after every tap where Cin <= 64). A 1 x 1 conv
+    has one tap, so a rounding per tap alone would be the rounded-once
+    result itself."""
+    import torch
+
+    kh, kw, cin, cout = w.shape
+    n, h, wid, _ = x.shape
+    oh, ow = (h - kh) // stride + 1, (wid - kw) // stride + 1
+    xf, wf = x.float(), w.float()
+    acc = torch.zeros((n, oh, ow, cout), dtype=torch.float32, device=x.device)
+    for u in range(kh):
+        for v in range(kw):
+            xs = xf[:, u:u + (oh - 1) * stride + 1:stride, v:v + (ow - 1) * stride + 1:stride]
+            for c0 in range(0, cin, 64):
+                acc = (acc + xs[..., c0:c0 + 64] @ wf[u, v, c0:c0 + 64]).bfloat16().float()
+    return acc.bfloat16()
+
+
 def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH):
     """conv2d_ntx at the GoogLeNet layers vs conv2d_ntx_torch and an fp64 conv.
 
-    First the path: every layer through ``conv2d_ntx`` (inputs padded with
-    F.pad; L0's a strided NHWC view of NCHW data), launch counts set to 0
-    just before and read just after. Gates: kernel vs the plain version and
-    vs the fp64 im2col conv at CONV_F32 / CONV_BF16, the same bits on a
-    second run, and L0 on its strided input equal to L0 on a contiguous
-    copy. Control: the fp32 kernel's output rounded through bf16, read
-    through the fp32 gate, must be rejected.
+    First the path: every layer in fp32 and bf16 through ``conv2d_ntx``
+    (inputs padded with F.pad; fp32 L0's a strided NHWC view of NCHW data),
+    launch counts per C entry set to 0 just before and read just after: bf16
+    with Cin and Cout multiples of 64 on the tensor-core entry, the rest on
+    the FFMA entry. Gates: kernel vs the plain version and vs the fp64
+    im2col conv at CONV_F32 / CONV_BF16, the same bits on a second run and
+    at another tile_h, and fp32 L0 on its strided input equal to L0 on a
+    contiguous copy; bf16 also the rounded-once gate. Controls: the fp32
+    kernel's output rounded through bf16, read through the fp32 gate, and
+    the conv that rounds to bf16 per stage, read through the rounded-once
+    gate, must be rejected. Times: CUDA events over 20 calls (ms) and the
+    kernels' device time under the profiler (dev ms); at L1 bf16 the FFMA
+    bf16 entry, called directly, is timed beside the tensor-core kernel.
     """
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import conv2d
-    from repro_torch.kernels.ref import conv2d_ref
+    from repro_torch.kernels import conv2d_ntx_wgmma as wgmma
+    from repro_torch.kernels.ref import conv2d_ref, conv_rounded_once_share
 
     cases = conv_cases(layers)
     inputs = {}
@@ -1486,16 +1541,24 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
         else:
             x = F.pad(seeded((batch, h, w, cin), dt, device, 10 + i), (0, 0, p, p, p, p))
         inputs[label] = (x, seeded((k, k, cin, cout), dt, device, 20 + i, 0.2), s)
+    want_entries: dict[str, int] = {}
+    for _, (_, _, _, cin, *_, cout), dt in cases:
+        e = conv2d.entry(dt, cin, cout)
+        want_entries[e] = want_entries.get(e, 0) + 1
     conv2d.COUNTER.reset()
     outs = {label: conv2d.conv2d_ntx(x, wt, stride=s) for label, (x, wt, s) in inputs.items()}
     torch.cuda.synchronize()
     launches, plain_calls = conv2d.COUNTER.launches, conv2d.COUNTER.plain_calls
-    print(f"  path: conv2d_ntx over {len(cases)} layers: {launches} kernel launches, "
-          f"{plain_calls} plain calls")
-    assert launches == len(cases) and plain_calls == 0, (launches, plain_calls)
+    entries = dict(conv2d.COUNTER.entries)
+    print(f"  path: conv2d_ntx over {len(cases)} cases: {launches} kernel launches "
+          f"({entries}), {plain_calls} plain calls")
+    assert entries == want_entries and plain_calls == 0, (entries, want_entries, plain_calls)
+    assert entries.get(wgmma.ENTRY, 0) == sum(
+        wgmma.takes(dt, layer[3], layer[7]) for _, layer, dt in cases) > 0, entries
 
-    print(f"{'case':>12} {'out (N,OH,OW,C)':>20} {'vs plain':>8} {'vs f64':>7} {'ctl bf16':>8} "
-          f"{'ms':>8} {'plain':>8} {'conv2d':>8} {'bound':>8}  (gates in units)")
+    print(f"{'case':>12} {'out (N,OH,OW,C)':>20} {'vs plain':>8} {'vs f64':>7} {'control':>8} "
+          f"{'ms':>8} {'dev ms':>8} {'plain':>8} {'conv2d':>8} {'dev':>8} {'bound':>8}  "
+          f"(gates in units; bf16 control: rounded-once share)")
     worst, rows = 0.0, {}
     for label, (name, h, w, cin, k, s, p, cout), dt in cases:
         x, wt, s = inputs[label]
@@ -1504,35 +1567,86 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
         want = conv2d.conv2d_ntx_torch(x, wt, stride=s)
         ref64 = conv2d_ref(x.double(), wt.double(), stride=s)
         u_plain, u_ref = conv_gate(y, want, dt), conv_gate(y, ref64, dt)
-        ctl = conv_gate(y.bfloat16(), want, torch.float32) if dt == torch.float32 else None
         del ref64
         assert y.shape == (batch, oh, ow, cout) and y.dtype == dt, (y.shape, y.dtype)
         assert bool(torch.isfinite(y).all()), f"{label}: non-finite output"
         assert torch.equal(y, conv2d.conv2d_ntx(x, wt, stride=s)), f"{label}: runs differ"
+        assert torch.equal(y, conv2d.conv2d_ntx(x, wt, stride=s, tile_h=3)), \
+            f"{label}: tile_h 8 and 3 gave different bits"
         if not x.is_contiguous():
             assert torch.equal(y, conv2d.conv2d_ntx(x.contiguous(), wt, stride=s)), \
                 f"{label}: strided and contiguous input gave different bits"
+        row = {}
+        if dt == torch.float32:
+            ctl = conv_gate(y.bfloat16(), want, torch.float32)
+            ctl_text = f"{ctl:.2f}"
+        else:
+            row["rounded_once"] = share = conv_rounded_once_share(y, x, wt, s)
+            plain_share = conv_rounded_once_share(want, x, wt, s)
+            control = control_conv_bf16_stages(x, wt, s)
+            ctl = conv_rounded_once_share(control, x, wt, s)
+            band = conv_gate(control, want, dt)
+            ctl_text = f"{ctl:.2%}"
+            print(f"{'':>12} {conv2d.entry(dt, cin, cout)}: rounded-once share {share:.4%} "
+                  f"(gate {ROUNDED_ONCE:.0%}), plain version {plain_share:.4%}; control "
+                  f"(bf16 per stage) {ctl:.4%}, "
+                  f"{'rejected' if ctl > ROUNDED_ONCE else 'passes'}; the 1e-2 band reads "
+                  f"the control at {band:.4f} ({'rejected' if band > 1 else 'passes'})")
+            del control
         xc = x.contiguous()
         ms = time_ms(lambda: conv2d.conv2d_ntx(x, wt, stride=s))
+        dev = device_ms(lambda: conv2d.conv2d_ntx(x, wt, stride=s))
         plain = time_ms(lambda: conv2d.conv2d_ntx_torch(x, wt, stride=s), iters=5)
         x_cl, w_oihw = xc.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)  # channels-last NCHW
         lib = time_ms(lambda: F.conv2d(x_cl, w_oihw, stride=s))
+        lib_dev = device_ms(lambda: F.conv2d(x_cl, w_oihw, stride=s))
         es = x.element_size()
         nbytes = es * (x.numel() + wt.numel() + y.numel())
         bnd, by = bound_ms(nbytes, 2.0 * batch * oh * ow * cout * k * k * cin, dtype_name(dt))
         print(f"{label:>12} {str((batch, oh, ow, cout)):>20} {u_plain:>8.4f} {u_ref:>7.4f} "
-              f"{(f'{ctl:.2f}' if ctl is not None else '-'):>8} {ms:>8.4f} {plain:>8.4f} "
-              f"{lib:>8.4f} {bnd:>8.5f}")
+              f"{ctl_text:>8} {ms:>8.4f} {dev:>8.4f} {plain:>8.4f} {lib:>8.4f} {lib_dev:>8.4f} "
+              f"{bnd:>8.5f}")
         worst = max(worst, max_abs(y, want))
-        rows[label] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
-                       "bound_by": by}
+        rows[label] = {"ms": ms, "device_ms": dev, "plain_ms": plain, "library_ms": lib,
+                       "library_device_ms": lib_dev, "bound_ms": bnd, "bound_by": by, **row}
         assert u_plain <= 1 and u_ref <= 1, \
             f"{label}: kernel vs plain {u_plain:.3f}, vs fp64 {u_ref:.3f} of the gate"
-        if ctl is not None:
+        if dt == torch.float32:
             assert ctl > 1, f"{label}: the fp32 gate let the bf16-rounded control through"
-    print("  strided L0 == contiguous L0 and run == run: identical bits; controls (fp32 "
-          "output rounded to bf16) rejected; 'conv2d' is F.conv2d on the NHWC tensors as "
-          "channels-last NCHW, cuDNN TF32 off")
+        else:
+            assert share <= ROUNDED_ONCE, f"{label}: rounded-once share {share:.4%}"
+            assert ctl > ROUNDED_ONCE, f"{label}: the rounded-once gate let the control through"
+    print("  run == run, tile_h 8 == tile_h 3 and strided L0 == contiguous L0: identical "
+          "bits; controls rejected (fp32: output rounded to bf16; bf16: sums rounded to bf16 "
+          "per stage); 'conv2d' is F.conv2d on the NHWC tensors as channels-last NCHW, cuDNN "
+          "TF32 off; 'dev' columns: device time under torch.profiler")
+
+    l1 = next((lab for lab, layer, dt in cases if dt == torch.bfloat16
+               and wgmma.takes(dt, layer[3], layer[7])), None)
+    bf16_row = {}
+    if l1 is not None:  # the FFMA bf16 entry beside the tensor-core kernel
+        x, wt, s = inputs[l1]
+        ffma = conv2d.launch(conv2d.FFMA, x, wt, stride=s)
+        u_ffma = conv_gate(ffma, conv2d.conv2d_ntx_torch(x, wt, stride=s), torch.bfloat16)
+        assert u_ffma <= 1, f"{l1}: FFMA bf16 entry vs plain {u_ffma:.3f} of the gate"
+        ffma_ms = time_ms(lambda: conv2d.launch(conv2d.FFMA, x, wt, stride=s))
+        r = rows[l1]
+        print(f"  {l1}: {wgmma.ENTRY} {r['ms']:.4f} ms (device {r['device_ms']:.4f}), FFMA bf16 "
+              f"entry {ffma_ms:.4f} ms (vs plain {u_ffma:.3f} of the gate), cuDNN bf16 "
+              f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+        bf16_row = {
+            "bf16_source": "src/repro_torch/kernels/csrc/conv2d_ntx_wgmma.cu",
+            "bf16_ms": r["ms"],
+            "bf16_device_ms": None if math.isnan(r["device_ms"]) else r["device_ms"],
+            "bf16_ffma_ms": ffma_ms,
+            "bf16_plain_ms": r["plain_ms"],
+            "bf16_library_ms": r["library_ms"],
+            "bf16_bound_ms": r["bound_ms"],
+            "bf16_rounded_once": r["rounded_once"],
+            "bf16_at": f"GoogLeNet {l1.split()[0]} at batch {batch}, bf16",
+        }
+    fp32 = rows.get("L1 float32", rows[cases[0][0]])
     smoke.kernels["conv2d_ntx"] = {
         "name": "conv2d_ntx",
         "route": "cuda",
@@ -1540,8 +1654,9 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
         "replaces": "src/repro/kernels/conv2d.py:53",
         "launches": launches,
         "max_abs_err": worst,
-        **rows.get("L1 float32", rows[cases[0][0]]),
+        **{key: fp32[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "at": "GoogLeNet L1 at batch 32, fp32",
+        **bf16_row,
     }
 
 

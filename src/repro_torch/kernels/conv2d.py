@@ -5,10 +5,16 @@ Per output-row tile of ``th = min(tile_h, OH)`` rows an fp32 accumulator
 sums, over the kernel taps (u, v) in order, the strided (th, OW, Cin) slice
 of the input times w[u, v] (Cin, Cout), and is rounded once at the store.
 
-:func:`conv2d_ntx` launches the hand-written Hopper kernel
-``csrc/conv2d_ntx.cu`` on CUDA tensors (one CTA per image, row tile and
-64-channel Cout tile; x read through its strides) and runs the plain version
-:func:`conv2d_ntx_torch` on CPU tensors.
+:func:`conv2d_ntx` launches a hand-written Hopper kernel on CUDA tensors
+and runs the plain version :func:`conv2d_ntx_torch` on CPU tensors.
+:func:`entry` picks the kernel from the dtype and the channel counts: bf16
+with Cin and Cout multiples of 64 goes to the tensor-core kernel
+``csrc/conv2d_ntx_wgmma.cu`` (an implicit GEMM on ``wgmma``, 128 output
+pixels per CTA; see :mod:`repro_torch.kernels.conv2d_ntx_wgmma`), every
+fp32 call and bf16 with other channel counts to the FFMA kernel
+``csrc/conv2d_ntx.cu`` (one CTA per image, row tile and 64-channel Cout
+tile). There is no fallback from one to the other. Both read x through its
+strides and sum each output in one order that does not depend on ``tile_h``.
 """
 
 from __future__ import annotations
@@ -18,11 +24,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import conv2d_ntx_wgmma as wgmma
 from repro_torch.kernels.ops import LaunchCounter, strict_fp32, use_kernel
 
 COUNTER = LaunchCounter("conv2d_ntx")
-_LIB = "conv2d_ntx"
+FFMA = "conv2d_ntx_launch"
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
+# C entry -> the library (csrc/<name>.cu) that exports it
+ENTRIES = {FFMA: "conv2d_ntx", wgmma.ENTRY: wgmma.LIB}
 
 
 def _geometry(x: torch.Tensor, w: torch.Tensor, stride: int, tile_h: int):
@@ -63,13 +72,66 @@ def conv2d_ntx_torch(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     return out
 
 
-def _entry():
-    fn = build.library(_LIB).conv2d_ntx_launch
+def entry(dtype: torch.dtype, cin: int, cout: int) -> str:
+    """The C entry a CUDA call launches, from x's dtype and the channel counts.
+
+    bf16 with Cin and Cout multiples of 64 -> ``conv2d_ntx_bf16_wgmma``
+    (tensor cores); fp32, and bf16 with other channel counts ->
+    ``conv2d_ntx_launch`` (FFMA). Other dtypes raise ``TypeError``.
+    """
+    if dtype not in _TYPES:
+        raise TypeError(f"conv2d_ntx kernel takes float32 or bfloat16 operands, got {dtype}")
+    return wgmma.ENTRY if wgmma.takes(dtype, cin, cout) else FFMA
+
+
+def _fn(name: str):
+    fn = getattr(build.library(ENTRIES[name]), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_longlong] * 4
-                       + [ctypes.c_void_p])
+        if name == FFMA:  # x, w, y, dtype, N, KH, KW, Cin, Cout, stride, th, OH, OW, 4 strides
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+                           + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+        else:  # x, w, y, N, KH, KW, Cin, Cout, stride, OH, OW, 3 pixel strides
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                           + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch(name: str, x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+           tile_h: int = 8) -> torch.Tensor:
+    """Launch C entry ``name`` on CUDA x, w of one dtype; y (N, OH, OW, Cout).
+
+    :func:`conv2d_ntx` calls it with :func:`entry`'s choice; a caller may
+    name the FFMA entry for operands the tensor-core entry takes (to time
+    it). The tensor-core entry checks its operand rules
+    (:func:`repro_torch.kernels.conv2d_ntx_wgmma.x_strides`).
+    """
+    oh, ow, th = _geometry(x, w, stride, tile_h)
+    if not use_kernel(x, w):
+        raise ValueError(f"conv2d_ntx: {name} takes CUDA tensors; conv2d_ntx runs the plain "
+                         f"version on CPU tensors")
+    if x.dtype != w.dtype or x.dtype not in _TYPES:
+        raise TypeError(f"conv2d_ntx kernel takes float32 or bfloat16 operands of one type, "
+                        f"got {x.dtype}, {w.dtype}")
+    n, _, _, cin = x.shape
+    kh, kw, _, cout = w.shape
+    w = w.contiguous()  # the kernels read w as the (kh*kw*Cin, Cout) matrix
+    if name == wgmma.ENTRY:
+        if not wgmma.takes(x.dtype, cin, cout):
+            raise ValueError(f"{name} takes bf16 with Cin and Cout multiples of "
+                             f"{wgmma.CHANNELS}, got {x.dtype}, Cin {cin}, Cout {cout}")
+        args = (n, kh, kw, cin, cout, stride, oh, ow, *wgmma.x_strides(x, w))
+    elif name == FFMA:
+        args = (_TYPES[x.dtype], n, kh, kw, cin, cout, stride, th, oh, ow, *x.stride())
+    else:
+        raise ValueError(f"conv2d_ntx: no C entry {name!r}; entries are {sorted(ENTRIES)}")
+    y = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = _fn(name)(x.data_ptr(), w.data_ptr(), y.data_ptr(), *args, stream)
+    build.check(ENTRIES[name], code, name)
+    COUNTER.launches += 1
+    COUNTER.entries[name] = COUNTER.entries.get(name, 0) + 1
+    return y
 
 
 def conv2d_ntx(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -77,23 +139,10 @@ def conv2d_ntx(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     """y[n, i, j, :] = sum over (u, v) of x[n, i*s+u, j*s+v, :] @ w[u, v].
 
     x (N, H, W, Cin) is pre-padded and may be a strided view; w (kh, kw,
-    Cin, Cout). The kernel for CUDA tensors, the plain version for CPU tensors.
+    Cin, Cout). The kernel of :func:`entry` for CUDA tensors, the plain
+    version for CPU tensors.
     """
-    oh, ow, th = _geometry(x, w, stride, tile_h)
     if not use_kernel(x, w):
         return conv2d_ntx_torch(x, w, stride=stride, tile_h=tile_h)
-    if x.dtype != w.dtype or x.dtype not in _TYPES:
-        raise TypeError(f"conv2d_ntx kernel takes float32 or bfloat16 operands of one type, "
-                        f"got {x.dtype}, {w.dtype}")
-    n, _, _, cin = x.shape
-    kh, kw, _, cout = w.shape
-    w = w.contiguous()  # the kernel reads w as the (kh*kw*Cin, Cout) matrix
-    y = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = _entry()(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), _TYPES[x.dtype], n, kh, kw, cin, cout,
-        stride, th, oh, ow, *x.stride(), stream,
-    )
-    build.check(_LIB, code, "conv2d_ntx")
-    COUNTER.launches += 1
-    return y
+    _geometry(x, w, stride, tile_h)
+    return launch(entry(x.dtype, x.shape[3], w.shape[3]), x, w, stride=stride, tile_h=tile_h)

@@ -11,9 +11,11 @@ at D 16, 32 or 256 to the FFMA kernel ``csrc/flash_attention.cu``. There is
 no fallback from one to the other. All compute what the TPU kernel's
 ``_attn_kernel`` computes: scores
 ``(q . k) * sm_scale`` in fp32, the KV-tail, causal and sliding-window masks
-with ``NEG_INF = -1e30``, the online max, sum and accumulator in fp32 with
-``p`` kept in fp32 in the ``p v`` product, rows with no visible key giving
-0, and one rounding of ``o`` to q's dtype. GQA points q head ``h`` at kv
+with ``NEG_INF = -1e30``, the online max, sum and accumulator in fp32, rows
+with no visible key giving 0, and one rounding of ``o`` to q's dtype. ``p``
+enters the ``p v`` product in fp32 in the FFMA kernel and the plain version,
+as in the TPU kernel, and as two bf16 terms (about 16 bits of p) in the
+tensor-core kernel. GQA points q head ``h`` at kv
 head ``h // (Hq // Hkv)``; KV is never repeated. The kernel reads q, k and v
 through their strides, so the transposed views of ``attention_block`` need
 no copy.

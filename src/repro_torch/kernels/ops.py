@@ -117,7 +117,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     if q_offset != 0 or kv_valid_len is not None:
         raise NotImplementedError(
             "attention with q_offset != 0 or kv_valid_len (the decode path, "
-            "_blockwise_attention_xla) is not ported yet (ROADMAP A5: decode / KV cache)"
+            "_blockwise_attention_xla) is not ported yet (ROADMAP A7: decode / KV cache)"
         )
     from repro_torch.kernels import flash_attention  # looked up at call time
 

@@ -47,6 +47,21 @@ def conv2d_ref(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     return y.to(x.dtype)
 
 
+def conv_rounded_once_share(y: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                            stride: int = 1) -> float:
+    """The share of the elements of ``y`` that differ from the fp64 conv of
+    the same x and w (:func:`conv2d_ref` in fp64) rounded once to y's dtype.
+
+    The fp64 result reaches bf16 through fp32, as in
+    :func:`rounded_once_share`. For bf16 a conv that sums in fp32 and rounds
+    once differs in a few elements in ten thousand (fp32 sums near a
+    rounding boundary); one that rounds its sum to bf16 after every tap moves
+    about half of them.
+    """
+    want = conv2d_ref(x.double(), w.double(), stride=stride).float().to(y.dtype)
+    return float((y != want).double().mean())
+
+
 def attention_ref(
     q: torch.Tensor,  # (B, Hq, Sq, D)
     k: torch.Tensor,  # (B, Hkv, Skv, D)

@@ -30,7 +30,7 @@ def _check_kind(kind) -> None:
     mixer, ffn = kind
     if mixer not in MIXERS or ffn not in FFNS:
         raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet (ROADMAP A5: MoE and RG-LRU layers); "
+            f"layer kind {kind!r} is not ported yet (ROADMAP A7: MoE and RG-LRU layers); "
             f"ported mixers {MIXERS}, FFNs {FFNS}"
         )
 

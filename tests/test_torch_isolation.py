@@ -53,7 +53,8 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.models.attention", "repro_torch.configs.qwen1_5_0_5b",
                 "repro_torch.core.precision", "repro_torch.core.tiling",
                 "repro_torch.kernels.ntx_matmul", "repro_torch.kernels.conv2d",
-                "repro_torch.kernels.flash_attention_wgmma"):
+                "repro_torch.kernels.flash_attention_wgmma",
+                "repro_torch.kernels.conv2d_ntx_wgmma"):
         assert mod in res["modules"]
 
 

@@ -18,9 +18,10 @@ import torch
 
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import conv2d, flash_attention, fused, ntx_matmul, ops, ssd_scan, streaming
+from repro_torch.kernels import conv2d_ntx_wgmma as conv_wgmma
 from repro_torch.kernels import flash_attention_wgmma as wgmma
-from repro_torch.kernels.ref import (attention_ref, conv2d_ref, matmul_ref64, rounded_once_share,
-                                     ssd_ref)
+from repro_torch.kernels.ref import (attention_ref, conv2d_ref, conv_rounded_once_share,
+                                     matmul_ref64, rounded_once_share, ssd_ref)
 from repro_torch.lower import (
     MaxPool2dSpec,
     RegionSpec,
@@ -607,3 +608,78 @@ def test_conv2d_kernel_refuses_mixed_devices_and_types(cuda_device):
         conv2d.conv2d_ntx(x, wt.bfloat16())
     with pytest.raises(TypeError):
         conv2d.conv2d_ntx(x.half(), wt.half())
+
+
+# the tensor-core entry (bf16, Cin and Cout multiples of 64): Cin 64 / 128 /
+# 256 / 512, Cout 64 / 128 / 192, stride 1 and 2, 1 x 1 and 3 x 3; no pixel
+# count is a multiple of 128, so every case has a ragged last tile
+CONV_WGMMA_CASES = [(1, 10, 10, 64, 3, 3, 64, 1), (2, 11, 9, 64, 3, 3, 192, 1),
+                    (1, 13, 13, 128, 3, 3, 64, 2), (2, 9, 9, 128, 1, 1, 192, 2),
+                    (1, 7, 7, 256, 1, 1, 64, 1), (3, 16, 16, 64, 3, 3, 192, 1),
+                    (2, 12, 12, 512, 1, 1, 192, 1), (1, 15, 17, 128, 3, 3, 128, 1),
+                    (2, 13, 13, 256, 3, 3, 192, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,kh,kw,cout,stride", CONV_WGMMA_CASES)
+def test_conv2d_wgmma_entry_matches_plain(cuda_device, n, h, w, cin, kh, kw, cout, stride):
+    """bf16 through the tensor-core entry vs plain and the fp64 conv (1e-2 of
+    max|y|), at most 1 % of y's elements off the fp64 conv rounded once, and
+    the same bits run to run and for every tile_h."""
+    x, wt = _conv_inputs(n, h, w, cin, kh, kw, cout, stride, torch.bfloat16, cuda_device)
+    conv2d.COUNTER.reset()
+    got = conv2d.conv2d_ntx(x, wt, stride=stride)
+    again = conv2d.conv2d_ntx(x, wt, stride=stride)
+    torch.cuda.synchronize()
+    assert conv2d.COUNTER.entries == {conv_wgmma.ENTRY: 2}
+    assert conv2d.COUNTER.plain_calls == 0
+    assert torch.equal(got, again)
+    _conv_close(got, conv2d.conv2d_ntx_torch(x, wt, stride=stride))
+    _conv_close(got, conv2d_ref(x.double(), wt.double(), stride=stride).to(torch.bfloat16))
+    assert conv_rounded_once_share(got, x, wt, stride) <= 1e-2
+    for tile_h in (1, 3, 100):
+        assert torch.equal(got, conv2d.conv2d_ntx(x, wt, stride=stride, tile_h=tile_h))
+
+
+@pytest.mark.cuda
+def test_conv2d_wgmma_entry_reads_padded_views(cuda_device):
+    """A padded plane's interior (pixel strides of the full plane, base moved)
+    gives the bits of its contiguous copy."""
+    x, wt = _conv_inputs(2, 20, 20, 128, 3, 3, 192, 1, torch.bfloat16, cuda_device)
+    inner = x[:, 2:-2, 1:-1]
+    assert not inner.is_contiguous()
+    got = conv2d.conv2d_ntx(inner, wt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, conv2d.conv2d_ntx(inner.contiguous(), wt))
+
+
+@pytest.mark.cuda
+def test_conv2d_wgmma_entry_refuses_operands_it_cannot_read(cuda_device):
+    x, wt = _conv_inputs(1, 12, 12, 64, 3, 3, 64, 1, torch.bfloat16, cuda_device)
+    wide = torch.zeros(1, 12, 12, 68, dtype=torch.bfloat16, device=cuda_device)[..., :64]
+    shifted = torch.zeros(12 * 12 * 64 + 1, dtype=torch.bfloat16,
+                          device=cuda_device)[1:].view(1, 12, 12, 64)
+    conv2d.COUNTER.reset()
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        conv2d.conv2d_ntx(wide, wt)
+    with pytest.raises(ValueError, match="16-byte-aligned base"):
+        conv2d.conv2d_ntx(shifted, wt)
+    with pytest.raises(ValueError, match="takes bf16 with Cin and Cout multiples of 64"):
+        conv2d.launch(conv_wgmma.ENTRY, x.float(), wt.float())
+    assert conv2d.COUNTER.launches == 0
+
+
+@pytest.mark.cuda
+def test_conv2d_launches_are_counted_per_entry(cuda_device):
+    """fp32 and bf16 Cin 3 / Cout 100 on the FFMA entry, bf16 Cin 64 on the tensor cores;
+    the FFMA entry named directly takes bf16 at Cin 64 too."""
+    conv2d.COUNTER.reset()
+    for dtype, cin, cout in ((torch.float32, 64, 64), (torch.bfloat16, 3, 64),
+                             (torch.bfloat16, 64, 64), (torch.bfloat16, 64, 100)):
+        conv2d.conv2d_ntx(*_conv_inputs(1, 10, 10, cin, 3, 3, cout, 1, dtype, cuda_device))
+    x, wt = _conv_inputs(1, 10, 10, 64, 3, 3, 64, 1, torch.bfloat16, cuda_device)
+    ffma = conv2d.launch(conv2d.FFMA, x, wt)
+    torch.cuda.synchronize()
+    assert conv2d.COUNTER.entries == {conv2d.FFMA: 4, conv_wgmma.ENTRY: 1}
+    assert conv2d.COUNTER.launches == 5
+    _conv_close(ffma, conv2d.conv2d_ntx_torch(x, wt))
