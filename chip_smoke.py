@@ -10,8 +10,8 @@ holds each kernel against its plain PyTorch version at the shapes of the
 main path, drives the main paths and checks that each went through its kernels:
 
 * ``repro_torch.launch.train.run_ntx_cnn`` on the paper CNN at batch 64,
-  img 32, fused and then ``--no-fuse`` (the fused-region and
-  streaming-matmul kernels);
+  img 32, fused and then ``--no-fuse`` (the fused-region kernel, and
+  ``streaming_matmul`` on the tensor-core GEMM of K-tile partials);
 * ``repro_torch.models.lm.prefill`` of Mamba-2 780M at full width and
   depth (48 layers, d_model 1536, vocab 50,288) on 2 x 2,048 tokens, in
   bf16 and in fp32 (the SSD-scan kernel, 48 launches per prefill);
@@ -22,10 +22,11 @@ main path, drives the main paths and checks that each went through its kernels:
   fp32 on the FFMA kernel);
 * the NTX kernel API at the paper's GoogLeNet layer widths, batch 32:
   ``repro_torch.kernels.ops.matmul`` (plain and compensated, fp32 and bf16)
-  on the four layers' im2col products and on 1024^3 (the NTX matmul
-  kernel), then ``repro_torch.kernels.conv2d_ntx`` on the four layers in
-  fp32 and in bf16 (the direct-convolution kernels: bf16 L1-L3 on the
-  tensor-core kernel, L0 and fp32 on the FFMA kernel).
+  on the four layers' im2col products and on 1024^3 (the same tensor-core
+  GEMM: bf16 as it is, fp32 as 3xTF32), then
+  ``repro_torch.kernels.conv2d_ntx`` on the four layers in fp32 and in bf16
+  (the direct-convolution kernels: bf16 L1-L3 on the tensor-core kernel,
+  L0 and fp32 on the FFMA kernel).
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` JSON line, and ``{"ok": true, "device": {...}}``.
@@ -48,9 +49,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # published H100 SXM peaks: HBM3 bandwidth; per operand type, fp32 outside
-# the tensor cores and bf16 (dense) on them
+# the tensor cores, tf32 and bf16 (dense) on them. fp32 products on the
+# tensor-core GEMM (streaming_matmul, ntx_matmul) are three tf32 products
 HBM_BYTES_PER_S = 3.35e12
-FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+FLOP_PER_S = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 TOL = {"rtol": 1e-5, "atol": 1e-6}
 BATCH, IMG, STEPS = 64, 32, 5
 # Mamba-2 780M prefill: batch x tokens, ids below the unpadded vocab 50,280
@@ -122,11 +124,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 10) -> float:
-    """Device time of ``fn`` per call in ms: the kernels' own time under
-    torch.profiler over ``iters`` warm calls. CUDA events around back-to-back
-    calls also count the host's enqueue where it is longer than the device's
-    work; this leaves it out. NaN where the profiler sees no device time."""
+def kernel_ms(fn, iters: int = 10) -> dict[str, float]:
+    """Device time of ``fn`` per call in ms, by kernel name, under
+    torch.profiler over ``iters`` warm calls; empty where the profiler sees
+    no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -137,9 +138,17 @@ def device_ms(fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / 1e3 / iters if total > 0 else float("nan")
+    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of ``fn`` per call in ms: the kernels' own time under
+    torch.profiler over ``iters`` warm calls. CUDA events around back-to-back
+    calls also count the host's enqueue where it is longer than the device's
+    work; this leaves it out. NaN where the profiler sees no device time."""
+    total = sum(kernel_ms(fn, iters).values())
+    return total if total > 0 else float("nan")
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str = "float32") -> tuple[float, str]:
@@ -199,13 +208,29 @@ def build_kernels():
     # the tensor-core kernels must run on wgmma (HGMMA) and TMA (UTMALDG); the
     # conv's gather on cp.async (LDGSTS)
     for name, ops in (("flash_attention_wgmma", ("HGMMA", "UTMALDG")),
-                      ("conv2d_ntx_wgmma", ("HGMMA", "UTMALDG", "LDGSTS"))):
+                      ("conv2d_ntx_wgmma", ("HGMMA", "UTMALDG", "LDGSTS")),
+                      ("ntx_gemm_wgmma", ("HGMMA",))):
         sass = subprocess.run([str(Path(build.nvcc_path()).parent / "cuobjdump"), "-sass",
                                str(paths[name])],
                               capture_output=True, text=True, check=True, timeout=120).stdout
         counts = {op: sass.count(op) for op in ops}
         print(f"  {name} SASS: {counts}")
         assert all(counts.values()), f"{name} lacks an instruction it is built on: {counts}"
+
+
+def ptxas_summary(name: str) -> str:
+    """The most registers and spill bytes ptxas reports over a library's kernels."""
+    import re
+
+    from repro_torch.kernels import build
+
+    log = build.BUILD_LOGS.get(name, "")
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(a) + int(b) for a, b in
+              re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    if not regs:
+        return f"{name}: no ptxas report (built before this run)"
+    return f"{name}: at most {max(regs)} registers, {max(spills, default=0)} bytes spilled"
 
 
 def main_path_graph_inputs(device):
@@ -226,9 +251,20 @@ def main_path_graph_inputs(device):
 
 
 def check_streaming(smoke: Smoke, device):
-    """streaming_matmul vs its plain version on the operands of one unfused step."""
+    """streaming_matmul vs its plain version on the operands of one unfused step.
+
+    Every call goes to the tensor-core GEMM of K-tile partials
+    (``csrc/ntx_gemm_wgmma.cu``, 3xTF32) at the split the wrapper plans. Per
+    call: the kernel vs the plain version at 1e-5 of |A|.|B|; where the call
+    splits, split 1 gives the same bits; the FFMA entry (``csrc/streaming_mm.cu``,
+    called by name) is timed beside it. The 1xTF32 control (hi.hi alone,
+    ``gemm_wgmma.emulate``) is read through the same gate. Bound: each input
+    read and each output written once, or the three tf32 products at the tf32
+    rate; the fp32-FFMA bound is printed beside it.
+    """
     import torch
 
+    from repro_torch.kernels import gemm_wgmma as gemm
     from repro_torch.kernels import streaming
     from repro_torch.lower import run_torch
 
@@ -253,30 +289,41 @@ def check_streaming(smoke: Smoke, device):
         ("a.T view", torch.randn(257, 130, generator=g).T, torch.randn(257, 33, generator=g)),
         ("b.T view", torch.randn(77, 200, generator=g), torch.randn(45, 200, generator=g).T),
     ]
-    worst_rel, worst_abs = 0.0, 0.0
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "bytes": 0.0, "flops": 0.0}
-    print(f"{'call':>28} {'M':>6} {'N':>5} {'K':>6} {'err/|A||B|':>10} "
-          f"{'ms':>8} {'plain':>8} {'lib':>8} {'bound':>8}")
+    sms = gemm.sm_count(device.index or 0)
+    worst_rel, worst_abs, ctl_min, ctl_max, joins = 0.0, 0.0, math.inf, 0.0, 0
+    tot = {k: 0.0 for k in ("ms", "ffma_ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_ffma_ms", "bytes", "flops")}
+    print(f"{'call':>28} {'M':>6} {'N':>5} {'K':>6} {'split':>5} {'err/|A||B|':>10} "
+          f"{'1xTF32':>8} {'ms':>8} {'ffma':>8} {'plain':>8} {'lib':>8} {'bound':>8}")
     for i, (a, b) in enumerate(calls):
         m, k = a.shape
         n = b.shape[1]
+        split = gemm.plan_split(m, n, k, streaming._block(k), sms)
         got = streaming.streaming_matmul(a, b)
         want = streaming.streaming_matmul_torch(a, b)
         scale = torch.matmul(a.abs(), b.abs()) + 1e-30
         rel = float(((got - want).abs() / scale).max())
+        ctl = gemm.emulate(a, b, block_k=streaming._block(k), terms=1)
+        rel_ctl = float(((ctl - want).abs() / scale).max())
+        ctl_min, ctl_max = min(ctl_min, rel_ctl), max(ctl_max, rel_ctl)
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, max_abs(got, want))
+        if split > 1:
+            assert torch.equal(got, streaming.launch(gemm.ENTRY, a, b, split=1)), \
+                f"call {i}: split {split} and split 1 gave different bits"
+        joins += gemm.workspace_numel(m, n, k, streaming._block(k), split) > 0
         ms = time_ms(lambda: streaming.streaming_matmul(a, b))
+        ffma = time_ms(lambda: streaming.launch(streaming.FFMA, a, b))
         plain = time_ms(lambda: streaming.streaming_matmul_torch(a, b))
         lib = time_ms(lambda: torch.matmul(a, b))
         nbytes, flops = 4.0 * (m * k + k * n + m * n), 2.0 * m * n * k
-        bnd, _ = bound_ms(nbytes, flops)
-        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                       ("bound_ms", bnd), ("bytes", nbytes), ("flops", flops)):
+        bnd, _ = bound_ms(nbytes, 3 * flops, "tf32")
+        for key, v in (("ms", ms), ("ffma_ms", ffma), ("plain_ms", plain), ("library_ms", lib),
+                       ("bound_ms", bnd), ("bound_ffma_ms", bound_ms(nbytes, flops)[0]),
+                       ("bytes", nbytes), ("flops", flops)):
             tot[key] += v
         view = "a.T" if a.stride(0) == 1 and m > 1 else ("b.T" if b.stride(0) == 1 and k > 1 else "")
-        print(f"{f'step call {i} {view}':>28} {m:>6} {n:>5} {k:>6} {rel:>10.2e} "
-              f"{ms:>8.4f} {plain:>8.4f} {lib:>8.4f} {bnd:>8.5f}")
+        print(f"{f'step call {i} {view}':>28} {m:>6} {n:>5} {k:>6} {split:>5} {rel:>10.2e} "
+              f"{rel_ctl:>8.2e} {ms:>8.4f} {ffma:>8.4f} {plain:>8.4f} {lib:>8.4f} {bnd:>8.5f}")
         if rel > 1e-5:
             raise AssertionError(f"call {i} ({m}x{k} @ {k}x{n}): error {rel:.2e} of |A||B|")
     for label, a, b in extra:
@@ -286,16 +333,26 @@ def check_streaming(smoke: Smoke, device):
         err = max_abs(got, want)
         print(f"{label:>28} {a.shape[0]:>6} {b.shape[1]:>5} {a.shape[1]:>6} max_abs {err:.2e}")
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    _, by = bound_ms(tot["bytes"], tot["flops"])
-    print(f"one unfused step: {len(calls)} streaming_matmul calls, kernel "
-          f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, torch.matmul "
-          f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms "
-          f"({tot['bytes']/1e6:.2f} MB, {tot['flops']/1e6:.1f} MFLOP); worst "
-          f"error {worst_rel:.2e} of |A||B|, {worst_abs:.2e} absolute")
+    _, by = bound_ms(tot["bytes"], 3 * tot["flops"], "tf32")
+    per_kernel = kernel_ms(lambda: [streaming.streaming_matmul(a, b) for a, b in calls])
+    dev = {part: sum(v for key, v in per_kernel.items() if f"{part}_kernel" in key)
+           for part in ("gemm", "join")}
+    print(f"one unfused step: {len(calls)} streaming_matmul calls ({joins} of them split: "
+          f"{len(calls)} GEMM and {joins} join launches), device time GEMM {dev['gemm']:.4f} ms, "
+          f"join {dev['join']:.4f} ms (torch.profiler); kernel "
+          f"{tot['ms']:.4f} ms, FFMA entry {tot['ffma_ms']:.4f} ms, plain {tot['plain_ms']:.4f} "
+          f"ms, torch.matmul {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms "
+          f"({tot['bytes']/1e6:.2f} MB, 3 x {tot['flops']/1e6:.1f} MFLOP at the tf32 rate; "
+          f"{tot['bound_ffma_ms']:.5f} ms at the fp32-FFMA rate); worst error "
+          f"{worst_rel:.2e} of |A||B|, {worst_abs:.2e} absolute; "
+          f"{ptxas_summary(gemm.LIB)}")
+    print(f"  1xTF32 control through the 1e-5 gate: {ctl_min:.2e} .. {ctl_max:.2e} of |A||B| "
+          f"over the calls ({'rejected' if ctl_max > 1e-5 else 'passes'})")
+    assert ctl_max > 1e-5, "the streaming gate let the 1xTF32 control through"
     smoke.kernels["streaming_matmul"] = {
         "name": "streaming_matmul",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/streaming_mm.cu",
+        "source": "src/repro_torch/kernels/csrc/ntx_gemm_wgmma.cu",
         "replaces": "src/repro/kernels/streaming.py:96",
         "launches": None,
         "max_abs_err": worst_abs,
@@ -305,6 +362,12 @@ def check_streaming(smoke: Smoke, device):
         "bound_by": by,
         "library_ms": tot["library_ms"],
         "calls_per_step": len(calls),
+        "joins_per_step": joins,
+        "join_launches": None,
+        "device_ms": dev["gemm"],
+        "join_device_ms": dev["join"],
+        "ffma_source": "src/repro_torch/kernels/csrc/streaming_mm.cu",
+        "ffma_ms": tot["ffma_ms"],
     }
 
 
@@ -444,6 +507,7 @@ def main_path(smoke: Smoke, device):
     import torch
 
     from repro_torch.kernels import fused, streaming
+    from repro_torch.kernels import gemm_wgmma as gemm
     from repro_torch.launch.train import run_ntx_cnn
 
     counters = (fused.COUNTER, streaming.COUNTER)
@@ -453,13 +517,16 @@ def main_path(smoke: Smoke, device):
             c.reset()
         res = run_ntx_cnn(STEPS, BATCH, IMG, fuse=fuse, device=device)
         counts = {c.name: (c.launches, c.plain_calls) for c in counters}
-        print(f"  fuse={fuse}: launches / plain calls {counts}")
-        runs[fuse] = (res, counts)
+        print(f"  fuse={fuse}: launches / plain calls {counts}, streaming_matmul by C entry "
+              f"{streaming.COUNTER.entries}")
+        runs[fuse] = (res, counts, dict(streaming.COUNTER.entries))
     launches = {"fused_region": runs[True][1]["fused_region"][0],
                 "streaming_matmul": runs[False][1]["streaming_matmul"][0]}
     for name, k in smoke.kernels.items():
         k["launches"] = launches[name]
-    for fuse, (res, counts) in runs.items():
+    sm = smoke.kernels["streaming_matmul"]
+    sm["join_launches"] = runs[False][2].get(gemm.JOIN, 0)
+    for fuse, (res, counts, _) in runs.items():
         losses = res["losses"]
         assert losses[-1] < losses[0], f"fuse={fuse}: loss did not decrease {losses}"
         assert all(plain == 0 for _, plain in counts.values()), counts
@@ -467,16 +534,50 @@ def main_path(smoke: Smoke, device):
             assert torch.isfinite(v).all(), f"fuse={fuse}: {k} not finite"
     assert launches["fused_region"] > 0, "the fused run launched no region kernel"
     assert launches["streaming_matmul"] > 0, "the unfused run launched no streaming_matmul"
+    want_entries = {gemm.ENTRY: launches["streaming_matmul"],
+                    gemm.JOIN: STEPS * sm["joins_per_step"]}
+    assert runs[False][2] == want_entries, (runs[False][2], want_entries)
     f0, u0 = runs[True][0]["first_outputs"], runs[False][0]["first_outputs"]
     assert set(f0) == set(u0)
     for k in f0:
         torch.testing.assert_close(f0[k], u0[k], **TOL, msg=f"step 0 fused vs unfused {k}")
     print(f"  step-0 outputs fused == unfused within rtol {TOL['rtol']} / atol "
           f"{TOL['atol']}; max_abs {max(max_abs(f0[k], u0[k]) for k in f0):.3e}")
-    for fuse, (res, _) in runs.items():
+    for fuse, (res, *_) in runs.items():
         walls = res["walls"][1:]
         print(f"  fuse={fuse}: losses {[round(x, 5) for x in res['losses']]}, warm step "
               f"wall {sum(walls) / len(walls) * 1e3:.3f} ms (host clock, synchronised)")
+    fused_vs_unfused_batch16(device)
+
+
+def fused_vs_unfused_batch16(device):
+    """tests/test_torch_kernels_cuda.py::test_step_fused_matches_unfused on
+    the card: one step at batch 16 (the test's inputs), fused and unfused,
+    every output held at TOL."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import params_from_jax
+    from repro_torch.lower import frequency_band_batches, paper_cnn_graph, run_torch
+
+    graph = paper_cnn_graph(batch=16, img=IMG)
+    x, labels = frequency_band_batches(np.random.RandomState(16), 16, IMG)(0)
+    ins = {"x": torch.as_tensor(x, device=device),
+           "onehot": torch.as_tensor(np.eye(10, dtype=np.float32)[labels], device=device),
+           **params_from_jax(graph.init_params(seed=1), graph, device)}
+    fused = run_torch(graph, ins, fuse=True, device=device)
+    unfused = run_torch(graph, ins, fuse=False, device=device)
+
+    def units(k) -> float:
+        d = (fused[k].double() - unfused[k].double()).abs()
+        return float((d / (TOL["atol"] + TOL["rtol"] * unfused[k].double().abs())).max())
+
+    worst = max(fused, key=units)
+    err = max_abs(fused[worst], unfused[worst])
+    print(f"  batch 16: fused vs unfused, worst {worst} at {units(worst):.4f} of rtol "
+          f"{TOL['rtol']} / atol {TOL['atol']} (max_abs {err:.3e})")
+    for k in fused:
+        torch.testing.assert_close(fused[k], unfused[k], **TOL, msg=f"batch 16 fused/unfused {k}")
 
 
 def ssd_work(x, la, b, chunk: int) -> tuple[float, float]:
@@ -1316,19 +1417,25 @@ def check_ntx_matmul(smoke: Smoke, device, cases=None, comp_shape=COMP_SHAPE):
     """ops.matmul, plain and compensated, vs ntx_matmul_torch and fp64.
 
     First the path: every case through ``ops.matmul`` in both modes, with
-    the launch counts set to 0 just before and read just after. Then, per
-    call: the kernel vs the plain version in the same mode at the band of
-    tests/kernels/test_ntx_matmul.py, its RMS error against the fp64
-    product at most MM_RMS x the plain version's, the same bits on a second
-    run. The compensation gate uses integer operands on which every K tile
-    sums exactly and the total crosses 2**24: the compensated kernel must
-    equal the fp64 product rounded once and the compensated plain version
-    bit for bit; the uncompensated kernel, read through the same gate, is
-    the control and must be rejected. The band and the RMS gate have their
-    own controls (:func:`check_mm_controls`).
+    the launch counts set to 0 just before and read just after; all go to the
+    tensor-core GEMM of K-tile partials (``csrc/ntx_gemm_wgmma.cu``), none to
+    the FFMA entry. Then, per call: the kernel vs the plain version in the
+    same mode at the band of tests/kernels/test_ntx_matmul.py, its RMS error
+    against the fp64 product at most MM_RMS x the plain version's, the same
+    bits on a second run. The FFMA entry (``csrc/ntx_matmul.cu``, by name) is
+    timed beside the kernel at L1 in fp32 and bf16, and a forced split must
+    give the bits of the planned one. The compensation gate uses integer
+    operands on which every K tile sums exactly and the total crosses 2**24:
+    the compensated kernel must equal the fp64 product rounded once and the
+    compensated plain version bit for bit; the uncompensated kernel, read
+    through the same gate, is the control and must be rejected. The band and
+    the RMS gate have their own controls (:func:`check_mm_controls`). Bound:
+    fp32 operands at three tf32 products each at the tf32 rate (the
+    fp32-FFMA figure printed beside it), bf16 at the bf16 rate.
     """
     import torch
 
+    from repro_torch.kernels import gemm_wgmma as gemm
     from repro_torch.kernels import ntx_matmul as mm
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import matmul_ref64
@@ -1341,12 +1448,18 @@ def check_ntx_matmul(smoke: Smoke, device, cases=None, comp_shape=COMP_SHAPE):
             for label, *_ in cases for comp in (False, True)}
     torch.cuda.synchronize()
     launches, plain_calls = mm.COUNTER.launches, mm.COUNTER.plain_calls
-    print(f"  path: ops.matmul over {len(cases)} shapes x 2 modes: {launches} kernel launches, "
-          f"{plain_calls} plain calls")
+    entries = dict(mm.COUNTER.entries)
+    print(f"  path: ops.matmul over {len(cases)} shapes x 2 modes: {launches} kernel launches "
+          f"({entries}), {plain_calls} plain calls")
     assert launches == 2 * len(cases) and plain_calls == 0, (launches, plain_calls)
-
-    print(f"{'case':>15} {'mode':>5} {'M':>7} {'K':>5} {'N':>5} {'vs plain':>8} {'vs f64':>7} "
-          f"{'rms/plain':>9} {'ms':>8} {'plain':>8} {'matmul':>8} {'bound':>8}  (gates in units)")
+    sms = gemm.sm_count(device.index or 0)
+    joins = 2 * sum(gemm.workspace_numel(m, n, k, ops.matmul_block_k(k),
+                                         gemm.plan_split(m, n, k, ops.matmul_block_k(k), sms)) > 0
+                    for _, m, k, n, _ in cases)
+    assert entries == {gemm.ENTRY: launches, **({gemm.JOIN: joins} if joins else {})}, entries
+    print(f"{'case':>15} {'mode':>5} {'M':>7} {'K':>5} {'N':>5} {'split':>5} {'vs plain':>8} "
+          f"{'vs f64':>7} {'rms/plain':>9} {'ms':>8} {'plain':>8} {'matmul':>8} {'bound':>8} "
+          f"{'ffma bd':>8}  (gates in units)")
     worst, rows = 0.0, {}
     for label, m, k, n, dt in cases:
         a, b = operands[label]
@@ -1357,8 +1470,11 @@ def check_ntx_matmul(smoke: Smoke, device, cases=None, comp_shape=COMP_SHAPE):
         a32, b32 = a.float(), b.float()  # bf16: the same exact products, summed in fp32
         lib = time_ms(lambda: torch.matmul(a32, b32))
         del a32, b32
-        nbytes = a.element_size() * (m * k + k * n) + 4.0 * m * n
-        bnd, by = bound_ms(nbytes, 2.0 * m * n * k, dn)
+        nbytes, flops = a.element_size() * (m * k + k * n) + 4.0 * m * n, 2.0 * m * n * k
+        bnd, by = (bound_ms(nbytes, 3 * flops, "tf32") if dt == torch.float32
+                   else bound_ms(nbytes, flops, dn))
+        bnd_ffma, _ = bound_ms(nbytes, flops, "float32")
+        split = gemm.plan_split(m, n, k, bk, sms)
         for comp in (False, True):
             got = outs[label, comp]
             want = mm.ntx_matmul_torch(a, b, block_k=bk, compensated=comp)
@@ -1370,21 +1486,52 @@ def check_ntx_matmul(smoke: Smoke, device, cases=None, comp_shape=COMP_SHAPE):
             plain = time_ms(lambda: mm.ntx_matmul_torch(a, b, block_k=bk, compensated=comp),
                             iters=5)
             mode = "comp" if comp else "plain"
-            print(f"{label:>15} {mode:>5} {m:>7} {k:>5} {n:>5} {u_plain:>8.4f} {u_ref:>7.4f} "
-                  f"{ratio:>9.4f} {ms:>8.4f} {plain:>8.4f} "
-                  f"{(f'{lib:.4f}' if not comp else 'none'):>8} {bnd:>8.5f}")
+            print(f"{label:>15} {mode:>5} {m:>7} {k:>5} {n:>5} {split:>5} {u_plain:>8.4f} "
+                  f"{u_ref:>7.4f} {ratio:>9.4f} {ms:>8.4f} {plain:>8.4f} "
+                  f"{(f'{lib:.4f}' if not comp else 'none'):>8} {bnd:>8.5f} {bnd_ffma:>8.5f}")
             worst = max(worst, max_abs(got, want))
             rows[label, comp] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-                                 "library_ms": None if comp else lib}
+                                 "library_ms": None if comp else lib, "bound_ffma_ms": bnd_ffma,
+                                 "rms_ratio": ratio}
             assert bool(torch.isfinite(got).all()) and got.shape == (m, n), f"{label} {mode}"
             assert got.dtype == torch.float32, got.dtype
             assert u_plain <= 1, f"{label} {mode}: kernel vs plain {u_plain:.3f} of the band"
             assert ratio <= MM_RMS, f"{label} {mode}: RMS vs fp64 {ratio:.4f} x the plain's"
             assert same, f"{label} {mode}: two runs gave different bits"
         del ref64
-    print(f"  bound at the operands' type rate (fp32 67, bf16 989 TFLOP/s); 'matmul' is "
-          f"torch.matmul in fp32, TF32 off (bf16 operands widened first); compensated mode "
-          f"has no library call")
+    print(f"  bound at the rate of what the kernel computes on: fp32 operands as three tf32 "
+          f"products (495 TFLOP/s), bf16 at 989; 'ffma bd' at the fp32-FFMA rate (67); "
+          f"'matmul' is torch.matmul in fp32, TF32 off (bf16 operands widened first); "
+          f"compensated mode has no library call; {ptxas_summary(gemm.LIB)}")
+
+    ffma = {}
+    for label in (lab for lab, *_ in cases if lab.startswith("L1 ")):
+        a, b = operands[label]
+        bk = ops.matmul_block_k(a.shape[1])
+        got = mm.launch(mm.FFMA, a, b, block_k=bk)
+        want = mm.ntx_matmul_torch(a, b, block_k=bk)
+        u = float(((got - want).abs() / (MM_ATOL[dtype_name(a.dtype)] * a.shape[1] ** 0.5
+                                         + MM_RTOL * want.abs())).max())
+        ffma[label] = time_ms(lambda: mm.launch(mm.FFMA, a, b, block_k=bk))
+        bt = b.T.contiguous().T  # B K-contiguous: 16-byte loads in place of element loads
+        assert torch.equal(ops.matmul(a, bt), outs[label, False]), f"{label}: B view changed bits"
+        bt_ms = time_ms(lambda: ops.matmul(a, bt))
+        r = rows[label, False]
+        print(f"  {label} plain mode: {gemm.ENTRY} {r['ms']:.4f} ms (B as a K-contiguous view, "
+              f"same bits: {bt_ms:.4f} ms), FFMA entry {ffma[label]:.4f} ms (vs plain {u:.4f} "
+              f"of the band), torch.matmul {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} "
+              f"ms ({r['bound_by']}; fp32-FFMA rate {r['bound_ffma_ms']:.5f})")
+        assert u <= 1, f"{label}: FFMA entry vs plain {u:.3f} of the band"
+        del bt
+    big = next(lab for lab, *_, dt in reversed(cases) if dt == torch.float32)
+    a, b = operands[big]
+    for comp in (False, True):
+        forced = mm.launch(gemm.ENTRY, a, b, block_k=ops.matmul_block_k(a.shape[1]),
+                           compensated=comp, split=4)
+        assert torch.equal(forced, outs[big, comp]), f"{big}: split 4 changed the bits"
+    planned = gemm.plan_split(a.shape[0], b.shape[1], a.shape[1], ops.matmul_block_k(a.shape[1]),
+                              sms)
+    print(f"  {big}: split 4 == split {planned} bit for bit, plain and compensated")
     check_mm_controls(operands, outs, cases)
 
     a16, b16 = (seeded((2, 2), torch.bfloat16, device, 0) for _ in range(2))
@@ -1413,27 +1560,37 @@ def check_ntx_matmul(smoke: Smoke, device, cases=None, comp_shape=COMP_SHAPE):
         assert n_ctl > 0, "the compensation gate let the plain-mode control through"
 
     key = ("L1 float32", False)
+    row = rows.get(key, rows[cases[0][0], False])
+    bf16 = rows.get(("L1 bfloat16", False))
     smoke.kernels["ntx_matmul"] = {
         "name": "ntx_matmul",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ntx_matmul.cu",
+        "source": "src/repro_torch/kernels/csrc/ntx_gemm_wgmma.cu",
         "replaces": "src/repro/kernels/ntx_matmul.py:63",
         "launches": launches,
         "max_abs_err": worst,
-        **rows.get(key, rows[cases[0][0], False]),
+        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "at": "GoogLeNet L1 im2col product, fp32, plain mode, via ops.matmul",
+        "bound_ffma_ms": row["bound_ffma_ms"],
+        "ffma_source": "src/repro_torch/kernels/csrc/ntx_matmul.cu",
+        "ffma_ms": ffma.get("L1 float32"),
+        **({"bf16_ms": bf16["ms"], "bf16_ffma_ms": ffma.get("L1 bfloat16"),
+            "bf16_plain_ms": bf16["plain_ms"], "bf16_library_ms": bf16["library_ms"],
+            "bf16_bound_ms": bf16["bound_ms"]} if bf16 else {}),
     }
 
 
 def check_mm_controls(operands, outs, cases):
     """Lower-precision controls read through both ntx_matmul gates, on the
     fp32 L1 operands (the first fp32 case when L1 is not among them): the
-    TF32 product (cuBLAS, TF32 on) must be rejected by the band and by the
-    RMS gate; the kernel's output rounded through bf16 must be rejected by
-    the RMS gate. The band's rtol (1e-2) is wider than bf16 rounding
-    (2**-9), so its reading of that control is printed, not gated."""
+    TF32 product (cuBLAS, TF32 on) and the 1xTF32 product of the kernel's
+    own tiling (hi.hi alone, ``gemm_wgmma.emulate``) must be rejected by the
+    band and by the RMS gate; the kernel's output rounded through bf16 must be
+    rejected by the RMS gate. The band's rtol (1e-2) is wider than bf16
+    rounding (2**-9), so its reading of that control is printed, not gated."""
     import torch
 
+    from repro_torch.kernels import gemm_wgmma as gemm
     from repro_torch.kernels import ntx_matmul as mm
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import matmul_ref64
@@ -1442,6 +1599,7 @@ def check_mm_controls(operands, outs, cases):
     label = "L1 float32" if "L1 float32" in fp32 else fp32[0]
     a, b = operands[label]
     k = a.shape[1]
+    bk = ops.matmul_block_k(k)
     atol = MM_ATOL["float32"] * k ** 0.5
     ref64 = matmul_ref64(a, b)
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -1452,20 +1610,22 @@ def check_mm_controls(operands, outs, cases):
     print(f"  controls on {label}, in units of the band (<= 1 passes) and of the plain "
           f"version's RMS error vs fp64 (<= {MM_RMS} passes):")
     for comp in (False, True):
-        want = mm.ntx_matmul_torch(a, b, block_k=ops.matmul_block_k(k), compensated=comp)
+        want = mm.ntx_matmul_torch(a, b, block_k=bk, compensated=comp)
         base = max(rms(want.double() - ref64), 1e-300)
         mode = "comp" if comp else "plain"
-        for name, ctl in (("TF32 product", tf32),
+        one_tf32 = gemm.emulate(a, b, block_k=bk, compensated=comp, terms=1)
+        for name, ctl in (("TF32 product", tf32), ("1xTF32 tiles", one_tf32),
                           ("kernel output via bf16", outs[label, comp].bfloat16().float())):
             band = float(((ctl - want).abs() / (atol + MM_RTOL * want.abs())).max())
             ratio = rms(ctl.double() - ref64) / base
-            tf = name.startswith("TF32")
+            gated = "TF32" in name
             print(f"    {mode:>5} {name:>22}: band {band:.4f} "
-                  f"({'rejected' if band > 1 else 'passes'}{'' if tf else ', not gated'}), "
+                  f"({'rejected' if band > 1 else 'passes'}{'' if gated else ', not gated'}), "
                   f"RMS {ratio:.1f}x ({'rejected' if ratio > MM_RMS else 'passes'})")
             assert ratio > MM_RMS, f"{mode}: the RMS gate let the {name} control through"
-            if tf:
+            if gated:
                 assert band > 1, f"{mode}: the band let the {name} control through"
+        del one_tf32
     del ref64, tf32
 
 

@@ -1,12 +1,14 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
-``streaming_matmul`` (``csrc/streaming_mm.cu``), the fused-region kernel
-(``csrc/fused_region.cu``), the SSD scan (``csrc/ssd_scan.cu``, reached
-through :func:`ssd`), flash attention (``csrc/flash_attention.cu``, reached
-through :func:`attention`), the NTX matmul (``csrc/ntx_matmul.cu``, reached
-through :func:`matmul`) and the NTX direct convolution
-(``csrc/conv2d_ntx.cu``, :func:`conv2d_ntx`) are built with ``nvcc`` on first
-use; see :mod:`repro_torch.kernels.build`.
+``streaming_matmul`` and the NTX matmul (reached through :func:`matmul`) on
+one tensor-core GEMM of K-tile partials (``csrc/ntx_gemm_wgmma.cu``), the
+fused-region kernel (``csrc/fused_region.cu``), the SSD scan
+(``csrc/ssd_scan.cu``, reached through :func:`ssd`), flash attention
+(``csrc/flash_attention_wgmma.cu`` and ``csrc/flash_attention.cu``, reached
+through :func:`attention`) and the NTX direct convolution
+(``csrc/conv2d_ntx_wgmma.cu`` and ``csrc/conv2d_ntx.cu``,
+:func:`conv2d_ntx`) are built with ``nvcc`` on first use; see
+:mod:`repro_torch.kernels.build`.
 """
 
 from repro_torch.kernels.conv2d import conv2d_ntx

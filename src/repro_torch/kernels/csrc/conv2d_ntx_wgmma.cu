@@ -114,11 +114,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// orders this thread's shared-memory writes before later async-proxy reads (wgmma)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
 // ---- wgmma ----------------------------------------------------------------
 
 // d[64 x BN] += a[64 x 16] b[16 x BN]: a K-major, b MN-major (transpose

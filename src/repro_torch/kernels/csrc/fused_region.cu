@@ -23,6 +23,14 @@
 //     output elements with an fp32 accumulator, and __syncthreads()
 //     separates stages. Every stage is per-image independent, as the TPU
 //     kernel's batch tiles already require;
+//   * the matmul forward (the logits' long sum, K = 512 in the paper CNN)
+//     is summed as streaming_matmul sums it in the unfused step: K tiles of
+//     the TPU kernel's _block(K), each in slices of 8 summed from zero, the
+//     slices and then the tiles added in order. One FMA chain over all of K
+//     was the larger error of the two steps' logits against the fp64 step.
+//     Each slice goes to its own thread (the sums in shared memory), then
+//     one thread per output joins them in order: the bits do not depend on
+//     the threads;
 //   * intermediates live in a per-image scratch arena in device memory
 //     (about 100 KB per image for the paper CNN, L2-resident at batch 64);
 //   * conv dX is the gather form of "dilate by s, pad by k-1-p, correlate
@@ -38,6 +46,7 @@ constexpr int MAX_BUFS = 64;
 constexpr int REC = 16;
 constexpr int EPI_REC = 8;
 constexpr int EPI_THREADS = 256;
+constexpr int FC_SLOTS = 2048;  // shared slice sums of the matmul forward
 
 // keep in sync with repro_torch/kernels/fused.py
 enum Op {
@@ -183,6 +192,7 @@ __device__ void pool_dx(const float* x, const float* g, float* dx, const int* r)
 
 __global__ void __launch_bounds__(1024)
 region_body(const int* __restrict__ table, int n_stages, RegionBufs bufs) {
+  __shared__ float fc_slices[FC_SLOTS];
   const long long img = blockIdx.x;
   for (int s = 0; s < n_stages; ++s) {
     const int* r = table + s * REC;
@@ -200,12 +210,40 @@ region_body(const int* __restrict__ table, int n_stages, RegionBufs bufs) {
       case OP_CONV_DX:
         conv_dx(a, b, out, conv_of(r));
         break;
-      case OP_MM_FWD: {  // y[n] = sum_k x[k] w[k, n]
+      case OP_MM_FWD: {  // y[n] = sum_k x[k] w[k, n], in the unfused step's order
         const int K = r[4], N = r[5];
-        for (int n = threadIdx.x; n < N; n += blockDim.x) {
-          float acc = 0.f;
-          for (int k = 0; k < K; ++k) acc = fmaf(a[k], b[k * N + n], acc);
-          out[n] = acc;
+        const int bk = K <= 1 ? 1 : (K < 128 ? 1 << (32 - __clz(K - 1)) : 128);
+        const int spt = (bk + 7) / 8;              // slices per K tile
+        const int n_sl = (K + bk - 1) / bk * spt;  // slice slots, in K order
+        const int cols = min(N, min(static_cast<int>(blockDim.x), FC_SLOTS));
+        const int rows = FC_SLOTS / max(cols, 1);
+        for (int c0 = 0; c0 < N; c0 += cols) {  // columns c0.. joined by threads 0..
+          const int cn = min(cols, N - c0);
+          float acc = 0.f, tile = 0.f;
+          for (int s0 = 0; s0 < n_sl; s0 += rows) {
+            const int sn = min(rows, n_sl - s0);
+            for (int o = threadIdx.x; o < sn * cn; o += blockDim.x) {  // one slice from zero
+              const int s = s0 + o / cn, t = s / spt;
+              const int k0 = t * bk + s % spt * 8, k1 = min(min(k0 + 8, (t + 1) * bk), K);
+              float sl = 0.f;
+              for (int k = k0; k < k1; ++k) sl = fmaf(a[k], b[k * N + c0 + o % cn], sl);
+              fc_slices[o] = sl;
+            }
+            __syncthreads();
+            if (static_cast<int>(threadIdx.x) < cn) {  // slices into tiles, tiles into acc
+              for (int q = 0; q < sn; ++q) {
+                const int s = s0 + q;
+                if (s / spt * bk + s % spt * 8 < K)
+                  tile = __fadd_rn(tile, fc_slices[q * cn + threadIdx.x]);
+                if (s % spt == spt - 1) {
+                  acc = __fadd_rn(acc, tile);
+                  tile = 0.f;
+                }
+              }
+            }
+            __syncthreads();
+          }
+          if (static_cast<int>(threadIdx.x) < cn) out[c0 + threadIdx.x] = acc;
         }
         break;
       }

@@ -1,43 +1,23 @@
-// NTX wide-accumulator matmul for Hopper: C[M,N] = A[M,K] . B[K,N].
+// NTX wide-accumulator matmul for Hopper on the FFMA pipe: C[M,N] = A[M,K] . B[K,N].
 //
-// Replaces the TPU kernel repro/kernels/ntx_matmul.py::ntx_matmul (body
-// _matmul_kernel): a (M/bm, N/bn, K/bk) grid whose K axis runs in order; per
-// K tile, prod = dot(a, b) in fp32; then acc += prod, or, compensated,
-// (s, e) = two_sum(acc, prod), acc = s, comp += e; the last tile stores
-// (acc + comp) cast once to the output type.
+// The first port of the TPU kernel repro/kernels/ntx_matmul.py::ntx_matmul
+// (body _matmul_kernel). No path of the port launches it any more:
+// ops.matmul and ntx_matmul launch ntx_gemm_wgmma.cu, which forms each K
+// tile's product on the tensor cores. It stays, reached by name through
+// kernels/ntx_matmul.py::launch, so that chip_smoke.py can time it beside
+// the tensor-core kernel.
 //
-// The K tiling is the numerics: which sums round where depends on bk, so bk
-// is a runtime argument and the kernel keeps the TPU kernel's structure:
-//   * each bk-wide K tile is summed into a fresh fp32 register tile `prod`,
-//     an FFMA chain over the tile's k in order (ffma_tile.cuh: chunks of
-//     BK = 16 staged through shared memory never cross a tile boundary, so
-//     the tile's sum starts from 0). On an H100 at the GoogLeNet
-//     im2col widths cuBLAS's fp32 SGEMM sums in the same order: there the
-//     kernel and its plain version agree bit for bit;
-//   * after the tile's last chunk, prod joins the accumulator: acc += prod,
-//     or the 2Sum written with __fadd_rn / __fsub_rn, which nvcc neither
-//     contracts nor reorders. Nothing in it multiplies, so FMA contraction
-//     cannot touch it. The build keeps --use_fast_math off, so fp32
-//     subnormals are kept;
-//   * acc (+ comp) leaves registers once, rounded once (__float2bfloat16_rn
-//     for a bf16 output).
-// bm and bn set no result, so the CTA tile is chosen for the card: 128 x 64
-// outputs, 256 threads, 8 x 4 a thread. One CTA walks all K tiles of its
-// outputs in order: no split-K, no atomics, the same bits on every run.
-//
-// Ragged edges are masked instead of padded: an element past M, N or K is
-// read as 0, and zeros change neither sum (two_sum(acc, 0) = (acc, 0)).
-// K tiles still start at multiples of bk. bf16 operands are widened on load;
-// their products are exact in fp32. A and B are read through row and
-// column strides.
-//
-// Bound on the H100: at the GoogLeNet im2col widths (K 147..576, N 64..192)
-// the work is 2MNK FLOPs against (MK + KN + MN) elements moved, tens of
-// FLOPs per byte, so the fp32 pipe (67 TFLOP/s, FFMA) bounds it, not memory.
-// The design does about that only what a simple kernel does (ffma_tile.cuh):
-// a register micro-tile of 8 x 4 outputs fed by three 16-byte shared loads
-// per k, and the next chunk's global loads in flight while the current one
-// is summed.
+// It computes the same function: per K tile of bk, prod summed from 0 in
+// fp32, then acc += prod, or the 2Sum written with __fadd_rn / __fsub_rn
+// (acc, comp); acc (+ comp) leaves registers once, rounded once. Each tile's
+// sum is one FFMA chain over the tile's k in order (ffma_tile.cuh: chunks of
+// BK = 16 staged through shared memory never cross a tile boundary), the
+// order of cuBLAS's fp32 SGEMM at the GoogLeNet im2col widths, where this
+// kernel and the plain version agreed bit for bit on an H100. CTA
+// tile 128 x 64 outputs, 256 threads, 8 x 4 a thread, one CTA walking all K
+// tiles of its outputs: no split-K, no atomics. Ragged edges are masked;
+// bf16 operands are widened on load. Bound: the fp32 pipe (67 TFLOP/s),
+// tens of FLOPs per byte at those widths.
 
 #include "ffma_tile.cuh"
 

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the tensor-core kernels
-// (flash_attention_wgmma.cu, conv2d_ntx_wgmma.cu): mbarriers, TMA loads into
+// (flash_attention_wgmma.cu, conv2d_ntx_wgmma.cu, ntx_gemm_wgmma.cu):
+// mbarriers, TMA loads into
 // shared memory, wgmma shared-memory descriptors (128-byte swizzle) and
 // fences, and the host's lookup of the tensor-map encoder.
 
@@ -81,6 +82,12 @@ __device__ __forceinline__ uint64_t desc(const uint8_t* p, uint32_t lbo, uint32_
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+// orders this thread's generic-proxy shared-memory writes (plain stores,
+// cp.async) before later async-proxy reads (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }

@@ -1,32 +1,20 @@
-// Streaming fp32 matmul for Hopper: C[M,N] = A[M,K] . B[K,N].
+// Streaming fp32 matmul for Hopper on the FFMA pipe: C[M,N] = A[M,K] . B[K,N].
 //
-// Replaces the TPU kernel repro/kernels/streaming.py::streaming_matmul
-// (body _stream_mm_kernel): M/N output blocks, K streamed through two VMEM
-// slots with a manual prefetch of tile k+1 while tile k contracts, into an
-// fp32 accumulator that is stored once.
-//
-// Bound on the H100: at the shapes the training step gives it (im2col
-// columns of B*oh*ow rows against 16..32 output channels, the fc head at
-// batch 64) N is small and arithmetic intensity is a few FLOP per byte, so
-// the bound is device-memory bandwidth, not the 67 TFLOP/s fp32 pipe.
+// The first port of the TPU kernel repro/kernels/streaming.py::streaming_matmul
+// (body _stream_mm_kernel). No path of the port launches it any more:
+// streaming_matmul launches ntx_gemm_wgmma.cu (3xTF32 tile products on the
+// tensor cores, K tiles of the TPU kernel's _block(K), the K tiles split
+// across CTAs where the output has few tiles). It stays, reached by name
+// through kernels/streaming.py::launch, so that chip_smoke.py can time it
+// beside the tensor-core kernel.
 //
 // Design: the shared GEMM loop of ffma_tile.cuh with K tiles of BK = 16
-// (Join::kAdd), which is this function:
-//   * one CTA per 64 x 64 output tile (4 x 4 a thread: the training step's
-//     long-K dW products have M of 75 or 144, and 64 rows spread them over
-//     more SMs) loops over the K tiles itself, so there is no cross-block
-//     reduction and no atomics;
-//   * the A and B tiles are staged through two shared-memory slots: tile
-//     k+1 is loaded while tile k is contracted (the counterpart of the
-//     make_async_copy ping-pong);
-//   * ragged M/N/K edges are masked (read as 0) instead of padded on the
-//     host;
-//   * A and B are addressed through row and column strides, so transposed
-//     views (a.T for dW, b.T for dX) need no copy;
-//   * the products of one K tile are summed into a tile partial first and
-//     then added to the accumulator, as the TPU kernel adds one tile dot at
-//     a time. fp32 FFMA, no TF32, no tensor cores. The accumulator leaves
-//     registers exactly once.
+// (Join::kAdd): one CTA per 64 x 64 output tile loops over all K itself
+// (no cross-block reduction, no atomics), two shared-memory slots with the
+// next chunk loaded while the current one is summed, ragged edges masked,
+// A and B read through their strides. fp32 FFMA, no tensor cores: the
+// training step's long-K dW products (M x N of 75 x 16 or 144 x 32) get
+// only 2 or 3 CTAs each.
 
 #include "ffma_tile.cuh"
 

@@ -7,26 +7,34 @@ prod); comp += e``), and ``acc + comp`` is rounded once to ``out_dtype``.
 Where the sums round depends on ``bk``, so ``bk`` is part of the function.
 
 :func:`tiled_matmul` launches the hand-written Hopper kernel
-``csrc/ntx_matmul.cu`` on CUDA tensors and runs the plain version
+``csrc/ntx_gemm_wgmma.cu`` on CUDA tensors (tile products on the tensor
+cores: bf16 operands as they are, fp32 as 3xTF32; tiles, split and numerics
+in :mod:`repro_torch.kernels.gemm_wgmma`) and runs the plain version
 :func:`ntx_matmul_torch` on CPU tensors. Both mask ragged edges in place of
 padding: K tiles start at multiples of ``bk`` and the last may be short.
 :func:`ntx_matmul` is the TPU kernel's own entry: ``block_k`` from
-``plan_matmul_tiles`` and a K that tiles by it evenly.
+``plan_matmul_tiles`` and a K that tiles by it evenly. The earlier FFMA
+kernel ``csrc/ntx_matmul.cu`` is reached only through :func:`launch` by
+name, to time it beside the tensor-core kernel; no path of the port calls it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.core.precision import two_sum
 from repro_torch.core.tiling import plan_matmul_tiles
 from repro_torch.kernels import build
+from repro_torch.kernels import gemm_wgmma as gemm
 from repro_torch.kernels.ops import LaunchCounter, strict_fp32, use_kernel
 
 COUNTER = LaunchCounter("ntx_matmul")
-_LIB = "ntx_matmul"
+FFMA = "ntx_matmul_launch"
+# C entry -> the library (csrc/<name>.cu) that exports it
+ENTRIES = {gemm.ENTRY: gemm.LIB, FFMA: "ntx_matmul"}
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -59,13 +67,16 @@ def ntx_matmul_torch(a: torch.Tensor, b: torch.Tensor, *, block_k: int,
     return (acc + comp if compensated else acc).to(out_dtype)
 
 
-def _entry():
-    fn = build.library(_LIB).ntx_matmul_launch
+def _ffma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, stream: int, *, block_k: int,
+          compensated: bool) -> int:
+    fn = build.library(ENTRIES[FFMA]).ntx_matmul_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn
+    return fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), _TYPES[a.dtype], _TYPES[c.dtype],
+              int(compensated), a.shape[0], b.shape[1], a.shape[1], block_k,
+              a.stride(0), a.stride(1), b.stride(0), b.stride(1), stream)
 
 
 def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *, block_k: int, out_dtype=torch.float32,
@@ -76,21 +87,25 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *, block_k: int, out_dtype=to
     if not use_kernel(a, b):
         return ntx_matmul_torch(a, b, block_k=block_k, out_dtype=out_dtype,
                                 compensated=compensated)
-    if a.dtype != b.dtype or a.dtype not in _TYPES:
+    return launch(gemm.ENTRY, a, b, block_k=block_k, out_dtype=out_dtype,
+                  compensated=compensated)
+
+
+def launch(name: str, a: torch.Tensor, b: torch.Tensor, *, block_k: int,
+           out_dtype=torch.float32, compensated: bool = False,
+           split: int | None = None) -> torch.Tensor:
+    """Launch C entry ``name`` on CUDA A, B of one type; C (M, N) contiguous.
+
+    :func:`tiled_matmul` names the tensor-core entry; a caller may name the
+    FFMA entry to time it, or force the tensor-core entry's ``split``.
+    """
+    _check(a, b, out_dtype, block_k)
+    if use_kernel(a, b) and (a.dtype != b.dtype or a.dtype not in _TYPES):
         raise TypeError(f"ntx_matmul kernel takes float32 or bfloat16 operands of one type, "
                         f"got {a.dtype}, {b.dtype}")
-    m, k = a.shape
-    n = b.shape[1]
-    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    code = _entry()(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), _TYPES[a.dtype], _TYPES[out_dtype],
-        int(compensated), m, n, k, block_k,
-        a.stride(0), a.stride(1), b.stride(0), b.stride(1), stream,
-    )
-    build.check(_LIB, code, "ntx_matmul")
-    COUNTER.launches += 1
-    return c
+    ffma = functools.partial(_ffma, block_k=block_k, compensated=compensated)
+    return gemm.launch_entry(name, COUNTER, (FFMA, ENTRIES[FFMA], ffma), a, b, block_k=block_k,
+                             out_dtype=out_dtype, compensated=compensated, split=split)
 
 
 def ntx_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=torch.float32,

@@ -54,12 +54,13 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.core.precision", "repro_torch.core.tiling",
                 "repro_torch.kernels.ntx_matmul", "repro_torch.kernels.conv2d",
                 "repro_torch.kernels.flash_attention_wgmma",
-                "repro_torch.kernels.conv2d_ntx_wgmma"):
+                "repro_torch.kernels.conv2d_ntx_wgmma", "repro_torch.kernels.gemm_wgmma"):
         assert mod in res["modules"]
 
 
 def test_port_sources_name_no_jax():
     files = list((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files += list((ROOT / "tools").glob("chip_*.py"))  # chip probes run beside chip_smoke.py
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()

@@ -20,6 +20,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.kernels import conv2d, flash_attention, fused, ntx_matmul, ops, ssd_scan, streaming
 from repro_torch.kernels import conv2d_ntx_wgmma as conv_wgmma
 from repro_torch.kernels import flash_attention_wgmma as wgmma
+from repro_torch.kernels import gemm_wgmma as gemm
 from repro_torch.kernels.ref import (attention_ref, conv2d_ref, conv_rounded_once_share,
                                      matmul_ref64, rounded_once_share, ssd_ref)
 from repro_torch.lower import (
@@ -550,6 +551,117 @@ def test_ntx_matmul_kernel_views_out_dtype_and_refusals(cuda_device):
         ops.matmul(a.half(), b.half())
     with pytest.raises(ValueError):
         ops.matmul(a, b.cpu())
+
+
+# the GEMM of K-tile partials behind ntx_matmul and streaming_matmul: long-K
+# products that split (the training step's c1 / c2 dW through a.T views) and two
+# that do not
+GEMM_SPLIT_CASES = [(75, 16, 16384, True), (144, 32, 4096, True), (300, 65, 2048, False),
+                    (130, 70, 1728, False)]
+
+
+def _gemm_inputs(m, n, k, dtype, device, a_t):
+    """A (M, K) and B (K, N); A as the transposed view of a (K, M) tensor if ``a_t``."""
+    rng = np.random.RandomState(m + n + k)
+    a = torch.as_tensor(rng.randn(k, m) if a_t else rng.randn(m, k), dtype=torch.float32)
+    b = torch.as_tensor(rng.randn(k, n), dtype=torch.float32)
+    a = a.to(device, dtype)
+    return (a.T if a_t else a), b.to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,n,k,a_t", GEMM_SPLIT_CASES)
+def test_gemm_forced_splits_give_identical_bits(cuda_device, m, n, k, a_t, dtype):
+    """Each K tile's partial does not depend on the CTA that forms it, and the
+    second pass joins them in tile order: any split gives the bits of split 1."""
+    a, b = _gemm_inputs(m, n, k, dtype, cuda_device, a_t)
+    for comp in (False, True):
+        one = gemm.launch(a, b, block_k=128, compensated=comp, split=1)
+        for split in (2, 7, 64, None):
+            assert torch.equal(gemm.launch(a, b, block_k=128, compensated=comp, split=split),
+                               one), (split, comp)
+        want = ntx_matmul.ntx_matmul_torch(a, b, block_k=128, compensated=comp)
+        torch.testing.assert_close(one, want, atol=(2e-5 if dtype == torch.float32 else 2e-2)
+                                   * k ** 0.5, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gemm_views_take_the_arithmetic_of_contiguous_operands(cuda_device, dtype):
+    """Column-major views, and rows whose starts are not 16-byte aligned (a
+    slice of a wider tensor), take the loads' element path; the layout in
+    shared memory is the same, and so are the bits, in every mode."""
+    a, b = _mm_inputs(257, 130, 300, dtype, cuda_device)
+    wide = torch.zeros(257, 301, dtype=dtype, device=cuda_device)
+    wide[:, 1:] = a
+    for comp in (False, True):
+        for out in (torch.float32, torch.bfloat16):
+            want = gemm.launch(a, b, block_k=128, compensated=comp, out_dtype=out)
+            for va, vb in ((a.T.contiguous().T, b), (a, b.T.contiguous().T),
+                           (a.T.contiguous().T, b.T.contiguous().T), (wide[:, 1:], b)):
+                got = gemm.launch(va, vb, block_k=128, compensated=comp, out_dtype=out)
+                assert got.dtype == out and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(8192, 192, 576), (8192, 64, 256), (16384, 64, 147)])
+def test_gemm_rms_gate_and_its_one_tf32_control(cuda_device, m, n, k):
+    """chip_smoke.py's RMS gate on GoogLeNet L0-L2 widths at a reduced M: the
+    kernel's RMS error against fp64 at most 1.05x the plain version's, fp32 and
+    bf16, plain and compensated; the 1xTF32 control is rejected by it and by
+    the band."""
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = _mm_inputs(m, n, k, dtype, cuda_device)
+        bk = ops.matmul_block_k(k)
+        ref = matmul_ref64(a, b)
+        rms = lambda x: float((x.double() - ref).square().mean().sqrt())  # noqa: E731
+        for comp in (False, True):
+            want = ntx_matmul.ntx_matmul_torch(a, b, block_k=bk, compensated=comp)
+            got = ops.matmul(a, b, compensated=comp)
+            assert rms(got) <= 1.05 * rms(want), (dtype, comp)
+        if dtype == torch.float32:
+            ctl = gemm.emulate(a, b, block_k=bk, terms=1)
+            want = ntx_matmul.ntx_matmul_torch(a, b, block_k=bk)
+            assert rms(ctl) > 1.05 * rms(want)
+            band = ((ctl - want).abs() / (2e-5 * k ** 0.5 + 1e-2 * want.abs())).max()
+            assert float(band) > 1
+
+
+@pytest.mark.cuda
+def test_gemm_launches_are_counted_per_entry(cuda_device):
+    """ops.matmul and streaming_matmul launch the tensor-core entry, and its
+    second pass where the call splits (16 K tiles over 6 tiles of C: split
+    16); the FFMA entries, named directly, still run and match their plain
+    versions as before."""
+    a, b = _mm_inputs(300, 65, 2048, torch.float32, cuda_device)
+    assert gemm.plan_split(300, 65, 2048, 128, gemm.sm_count(0)) == 16
+    ntx_matmul.COUNTER.reset()
+    streaming.COUNTER.reset()
+    ops.matmul(a, b)
+    ops.matmul(a.bfloat16(), b.bfloat16(), compensated=True)
+    streaming.streaming_matmul(a, b)
+    assert ntx_matmul.COUNTER.entries == {gemm.ENTRY: 2, gemm.JOIN: 2}
+    assert streaming.COUNTER.entries == {gemm.ENTRY: 1, gemm.JOIN: 1}
+    streaming.launch(gemm.ENTRY, a, b, split=1)  # one part: no second pass
+    assert streaming.COUNTER.entries == {gemm.ENTRY: 2, gemm.JOIN: 1}
+    for comp in (False, True):
+        ffma = ntx_matmul.launch(ntx_matmul.FFMA, a, b, block_k=128, compensated=comp)
+        want = ntx_matmul.ntx_matmul_torch(a, b, block_k=128, compensated=comp)
+        torch.testing.assert_close(ffma, want, atol=2e-5 * 2048 ** 0.5, rtol=1e-2)
+    ffma = streaming.launch(streaming.FFMA, a, b)
+    scale = torch.matmul(a.abs(), b.abs())
+    assert float(((ffma - streaming.streaming_matmul_torch(a, b)).abs() / scale).max()) <= 1e-5
+    torch.cuda.synchronize()
+    assert ntx_matmul.COUNTER.entries == {gemm.ENTRY: 2, gemm.JOIN: 2, ntx_matmul.FFMA: 2}
+    assert streaming.COUNTER.entries == {gemm.ENTRY: 2, gemm.JOIN: 1, streaming.FFMA: 1}
+    assert (ntx_matmul.COUNTER.launches, streaming.COUNTER.launches) == (4, 3)
+    with pytest.raises(ValueError, match="no C entry"):
+        ntx_matmul.launch("ntx_matmul_nope", a, b, block_k=128)
+    with pytest.raises(ValueError, match="only ntx_gemm_wgmma splits"):
+        streaming.launch(streaming.FFMA, a, b, split=2)
+    with pytest.raises(TypeError, match="float32"):
+        streaming.streaming_matmul(a.bfloat16(), b.bfloat16())
 
 
 # conv2d_ntx: tests/kernels/test_conv2d.py's cases and a GoogLeNet-like stem
