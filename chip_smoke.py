@@ -14,7 +14,8 @@ main path, drives the main paths and checks that each went through its kernels:
   ``streaming_matmul`` on the tensor-core GEMM of K-tile partials);
 * ``repro_torch.models.lm.prefill`` of Mamba-2 780M at full width and
   depth (48 layers, d_model 1536, vocab 50,288) on 2 x 2,048 tokens, in
-  bf16 and in fp32 (the SSD-scan kernel, 48 launches per prefill);
+  bf16 and in fp32 (the SSD-scan kernels, 48 launches per prefill: bf16
+  on the tensor-core kernel, fp32 on the FFMA kernel);
 * ``repro_torch.models.lm.prefill`` of Qwen1.5-0.5B at full width and
   depth (24 attention + MLP layers, d_model 1024, 16 heads of 64, vocab
   151,936) on 2 x 2,048 tokens, in bf16 and in fp32 (the flash-attention
@@ -209,7 +210,8 @@ def build_kernels():
     # conv's gather on cp.async (LDGSTS)
     for name, ops in (("flash_attention_wgmma", ("HGMMA", "UTMALDG")),
                       ("conv2d_ntx_wgmma", ("HGMMA", "UTMALDG", "LDGSTS")),
-                      ("ntx_gemm_wgmma", ("HGMMA",))):
+                      ("ntx_gemm_wgmma", ("HGMMA",)),
+                      ("ssd_scan_wgmma", ("HGMMA", "UTMALDG"))):
         sass = subprocess.run([str(Path(build.nvcc_path()).parent / "cuobjdump"), "-sass",
                                str(paths[name])],
                               capture_output=True, text=True, check=True, timeout=120).stdout
@@ -629,31 +631,39 @@ def ssd_inputs(shape, dtype, device, seed: int, *, dt_min: float = 0.0, dt_max: 
 
 
 def check_ssd(smoke: Smoke, device, full=(2, 48, 1, 2048, 64, 128), chunk: int = 128):
-    """ssd_scan vs its plain chunked version and the sequential ssd_ref."""
+    """ssd_scan vs its plain chunked version and the sequential ssd_ref; bf16
+    on the tensor-core entry also through the rounded-once gate."""
     import torch
 
     from repro_torch.kernels import ssd_scan
-    from repro_torch.kernels.ref import ssd_ref
+    from repro_torch.kernels import ssd_scan_wgmma as wgmma
+    from repro_torch.kernels.ref import ssd_ref, ssd_rounded_once_share
 
     bb, h, g, s, p, n = full
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # (label, shape, dtype, layout, dt range, seed)
-        ("full width f32", full, torch.float32, "model", (0.0, 0.1), 0),
-        ("full width bf16", full, torch.bfloat16, "model", (0.0, 0.1), 1),
-        ("full width f32 contiguous", full, torch.float32, "contiguous", (0.0, 0.1), 0),
-        ("G 2 f32", (1, 8, 2, 4 * chunk, p, n), torch.float32, "model", (0.0, 0.1), 2),
-        ("G 2 bf16", (1, 8, 2, 4 * chunk, p, n), torch.bfloat16, "model", (0.0, 0.1), 2),
-        ("strong decay f32", (1, h, 1, 2 * chunk, p, n), torch.float32, "model", (0.1, 0.1), 3),
+        ("full width f32", full, f32, "model", (0.0, 0.1), 0),
+        ("full width bf16", full, bf16, "model", (0.0, 0.1), 1),
+        ("full width f32 contiguous", full, f32, "contiguous", (0.0, 0.1), 0),
+        ("full width bf16 contiguous", full, bf16, "contiguous", (0.0, 0.1), 1),
+        ("G 2 f32", (1, 8, 2, 4 * chunk, p, n), f32, "model", (0.0, 0.1), 2),
+        ("G 2 bf16", (1, 8, 2, 4 * chunk, p, n), bf16, "model", (0.0, 0.1), 2),
+        ("strong decay f32", (1, h, 1, 2 * chunk, p, n), f32, "model", (0.1, 0.1), 3),
+        ("strong decay bf16", (1, h, 1, 2 * chunk, p, n), bf16, "model", (0.1, 0.1), 3),
         # la to -48 per step: cum_i - cum_j cancels in fp32 in any dual form,
         # so the kernel is held to the sequential ssd_ref; vs plain is printed
-        ("dt to 1.0 f32", (1, h, 1, 2 * chunk, p, n), torch.float32, "model", (0.0, 1.0), 4),
+        ("dt to 1.0 f32", (1, h, 1, 2 * chunk, p, n), f32, "model", (0.0, 1.0), 4),
+        ("dt to 1.0 G 2 bf16", (1, h, 2, 2 * chunk, p, n), bf16, "model", (0.0, 1.0), 5),
     ]
-    worst, outs = 0.0, {}
+    worst, outs, shares = 0.0, {}, {}
     print(f"{'case':>26} {'max|y|':>9} {'kernel-plain':>12} {'kernel-ref':>11} "
-          f"{'plain-ref':>10} {'gate':>8}")
+          f"{'plain-ref':>10} {'gate':>8}  entry")
     for label, shape, dtype, layout, (dt_min, dt_max), seed in cases:
         x, la, b, c = ssd_inputs(shape, dtype, device, seed, dt_min=dt_min, dt_max=dt_max,
                                  layout=layout)
+        ssd_scan.COUNTER.reset()
         got = ssd_scan.ssd_scan(x, la, b, c, chunk=chunk)
+        entries = dict(ssd_scan.COUNTER.entries)
         want = ssd_scan.ssd_scan_torch(x, la, b, c, chunk=chunk)
         seq = ssd_ref(x, la, b, c)
         torch.cuda.synchronize()
@@ -663,39 +673,89 @@ def check_ssd(smoke: Smoke, device, full=(2, 48, 1, 2048, 64, 128), chunk: int =
         vs_plain = dt_max < 1.0
         outs[label] = got
         print(f"{label:>26} {scale:>9.4f} {e_plain / scale:>12.2e}{' ' if vs_plain else '*'}"
-              f"{e_ref / scale:>10.2e} {max_abs(want, seq) / scale:>10.2e} {tol:>8.0e}")
+              f"{e_ref / scale:>10.2e} {max_abs(want, seq) / scale:>10.2e} {tol:>8.0e}  "
+              f"{', '.join(entries)}")
+        assert entries == {ssd_scan.entry(dtype, p, n, chunk): 1}, f"{label}: launched {entries}"
         assert bool(torch.isfinite(got).all()), f"{label}: non-finite output"
         if vs_plain:
             worst = max(worst, e_plain)
             assert e_plain <= tol * scale, f"{label}: kernel vs plain {e_plain / scale:.2e}"
         assert e_ref <= tol * scale, f"{label}: kernel vs ssd_ref {e_ref / scale:.2e}"
+        if ssd_scan.entry(dtype, p, n, chunk) == wgmma.ENTRY and "contiguous" not in label:
+            shares[label] = share = ssd_rounded_once_share(got, x, la, b, c)
+            print(f"{'':>26} rounded-once share {share:.4%} (gate {ROUNDED_ONCE:.0%}"
+                  f"{'' if vs_plain else ', printed, not gated'}); plain version "
+                  f"{ssd_rounded_once_share(want, x, la, b, c):.4%}")
+            assert not vs_plain or share <= ROUNDED_ONCE, f"{label}: rounded-once share {share:.4%}"
     print("  * printed, not gated")
-    assert torch.equal(outs["full width f32"], outs["full width f32 contiguous"]), \
-        "strided and contiguous operands gave different bits"
-    again = ssd_scan.ssd_scan(*ssd_inputs(full, torch.float32, device, 0), chunk=chunk)
-    assert torch.equal(again, outs["full width f32"]), "two runs gave different bits"
+    for label in ("full width f32", "full width bf16"):
+        dtype = f32 if "f32" in label else bf16
+        again = ssd_scan.ssd_scan(*ssd_inputs(full, dtype, device, 0 if dtype == f32 else 1),
+                                  chunk=chunk)
+        assert torch.equal(outs[label], outs[f"{label} contiguous"]), \
+            f"{label}: strided and contiguous operands gave different bits"
+        assert torch.equal(again, outs[label]), f"{label}: two runs gave different bits"
+    print("  full width f32 / bf16: strided == contiguous and run == run, identical bits")
 
-    x, la, b, c = ssd_inputs(full, torch.bfloat16, device, 1)  # the main path's operands
+    x, la, b, c = ssd_inputs(full, bf16, device, 1)  # the main path's operands
+    want = ssd_scan.ssd_scan_torch(x, la, b, c, chunk=chunk)
+    scale = float(want.float().abs().max())
+    for kind in ("one_term", "scores"):
+        ctl = control_ssd(kind)(x, la, b, c, chunk=chunk)
+        share, band = ssd_rounded_once_share(ctl, x, la, b, c), max_abs(ctl, want) / scale
+        print(f"  control {kind} on full width bf16: rounded-once share {share:.4%}, "
+              f"{'rejected' if share > ROUNDED_ONCE else 'passes'}; the 1e-2 band reads "
+              f"{band:.2e} ({'rejected' if band > SSD_TOL['bfloat16'] else 'passes'})")
+        if kind == "one_term":
+            assert share > ROUNDED_ONCE, "the rounded-once gate let the one_term control through"
+        del ctl
+    # the FFMA bf16 entry (still the kernel at other bf16 shapes), held against
+    # the plain version and timed beside the tensor-core kernel
+    ffma = ssd_scan.launch(ssd_scan.FFMA[bf16], x, la, b, c, chunk=chunk)
+    e_ffma = max_abs(ffma, want) / scale
+    print(f"  FFMA bf16 entry at full width vs plain: {e_ffma:.2e} of max|y|")
+    assert e_ffma <= SSD_TOL["bfloat16"], f"FFMA bf16 entry vs plain {e_ffma:.2e}"
+    del ffma
+    name = ssd_scan.entry(bf16, p, n, chunk)
     ms = time_ms(lambda: ssd_scan.ssd_scan(x, la, b, c, chunk=chunk))
+    ffma_ms = time_ms(lambda: ssd_scan.launch(ssd_scan.FFMA[bf16], x, la, b, c, chunk=chunk))
     plain = time_ms(lambda: ssd_scan.ssd_scan_torch(x, la, b, c, chunk=chunk), iters=5)
+    x32, la32, b32, c32 = ssd_inputs(full, f32, device, 0)
+    f32_ms = time_ms(lambda: ssd_scan.ssd_scan(x32, la32, b32, c32, chunk=chunk))
+    del x32, la32, b32, c32
+    passes = kernel_ms(lambda: ssd_scan.ssd_scan(x, la, b, c, chunk=chunk))
+    dev = sum(passes.values()) if passes else float("nan")
     nbytes, flops = ssd_work(x, la, b, chunk)
     bnd, by = bound_ms(nbytes, flops, "bfloat16")
     print(f"ssd_scan at B {bb}, H {h}, S {s}, P {p}, N {n}, chunk {chunk}, bf16: kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.5f} ms ({nbytes / 1e6:.2f} MB, "
-          f"{flops / 1e9:.2f} GFLOP, {by}; at the fp32 rate the kernel computes in "
-          f"{bound_ms(nbytes, flops)[0]:.5f} ms); no single library call computes SSD")
+          f"({name}) {ms:.4f} ms by events, {dev:.4f} ms device time in its passes; FFMA bf16 "
+          f"entry {ffma_ms:.4f} ms; plain {plain:.4f} ms; fp32 ({ssd_scan.entry(f32, p, n, chunk)}) "
+          f"{f32_ms:.4f} ms; bound {bnd:.5f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP, "
+          f"{by}; at the fp32 rate the kernel computes in {bound_ms(nbytes, flops)[0]:.5f} ms); "
+          f"no single library call computes SSD")
+    for key, kms in sorted(passes.items(), key=lambda kv: -kv[1]):
+        print(f"    {kms:9.4f} ms  {key[:90]}")
+    sources = {e: f"src/repro_torch/kernels/csrc/{lib}.cu"
+               for e, lib in sorted(ssd_scan.ENTRIES.items())}
     smoke.kernels["ssd_scan"] = {
         "name": "ssd_scan",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "source": sources[name],
+        "sources": sources,
         "replaces": "src/repro/kernels/ssd_scan.py:82",
         "launches": None,
+        "launches_by_entry": None,
         "max_abs_err": worst,
         "ms": ms,
+        "device_ms": dev,
         "plain_ms": plain,
         "bound_ms": bnd,
         "bound_by": by,
         "library_ms": None,
+        "ffma_bf16_ms": ffma_ms,
+        "f32_ms": f32_ms,
+        "rounded_once": shares["full width bf16"],
+        "at": f"B {bb}, H {h}, G {g}, S {s:,}, P {p}, N {n}, chunk {chunk}, bf16",
     }
 
 
@@ -758,11 +818,18 @@ def control_ssd(kind: str):
     """A lower-precision plain SSD, read through the gates of the prefill.
 
     ``"scores"``: the c b^T block rounded to bf16, one rounding more than
-    the kernel makes. ``"y_e5m2"``: y rounded to fp8 e5m2 (2 mantissa bits).
+    the kernels make. ``"y_e5m2"``: y rounded to fp8 e5m2 (2 mantissa bits).
+    ``"one_term"``: the tensor-core kernel's numerics with each fp32 operand
+    of a bf16 product as one bf16 term, not two (``ssd_scan_wgmma.emulate``
+    with ``terms=1``).
     """
     import torch
 
     from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels import ssd_scan_wgmma as wgmma
+
+    def one_term(x, la, b, c, *, chunk):
+        return wgmma.emulate(x, la, b, c, chunk=chunk, terms=1)
 
     def y_e5m2(x, la, b, c, *, chunk):
         return ssd_scan.ssd_scan_torch(x, la, b, c, chunk=chunk).to(torch.float8_e5m2).to(x.dtype)
@@ -791,7 +858,7 @@ def control_ssd(kind: str):
             ys.append(y)
         return torch.stack(ys, dim=3).reshape(bb, h, s, p).to(x.dtype)
 
-    return {"scores": scores_bf16, "y_e5m2": y_e5m2}[kind]
+    return {"scores": scores_bf16, "y_e5m2": y_e5m2, "one_term": one_term}[kind]
 
 
 def _prefill_runs(params, tokens, cfg, ctx, mod, n_launch: int, warm: int, launch_gate,
@@ -854,7 +921,7 @@ def profile_prefill(params, tokens, cfg, ctx, warm_wall_ms: float):
     """Device time of one warm prefill by kernel and by kind, from torch.profiler.
 
     Kinds: the port's kernels (``attn_kernel``, ``attn_wgmma_kernel``,
-    ``ssd_kernel``), matrix
+    ``ssd_kernel``, the ``ssd_wgmma_*`` passes), matrix
     products (cuBLAS), and everything else (element-wise passes, reductions,
     copies). The device's idle share is 1 - (sum of kernel times) / the
     warm wall measured without the profiler.
@@ -878,7 +945,7 @@ def profile_prefill(params, tokens, cfg, ctx, warm_wall_ms: float):
         return
 
     def kind(name):
-        if any(t in name for t in ("attn_kernel", "attn_wgmma_kernel", "ssd_kernel")):
+        if any(t in name for t in ("attn_kernel", "attn_wgmma_kernel", "ssd_kernel", "ssd_wgmma")):
             return "port kernel"
         if any(t in name.lower() for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
             return "matmul (cuBLAS)"
@@ -897,10 +964,14 @@ def profile_prefill(params, tokens, cfg, ctx, warm_wall_ms: float):
 
 
 def _ssd_launch_gate(calls, dtype):
-    """Each SSD launch vs the plain SSD at SSD_TOL; bf16 scores must fail in fp32."""
+    """Each SSD launch vs the plain SSD at SSD_TOL; bf16 scores must fail in
+    fp32. Launches of the tensor-core entry also read layer 0 through the
+    rounded-once gate."""
     import torch
 
     from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels import ssd_scan_wgmma as wgmma
+    from repro_torch.kernels.ref import ssd_rounded_once_share
 
     tol = SSD_TOL[str(dtype).split(".")[-1]]
     rel = []
@@ -910,13 +981,23 @@ def _ssd_launch_gate(calls, dtype):
         rel.append(max_abs(y, want) / scale)
         if i == 0:
             ctl = max_abs(control_ssd("scores")(*args, **kw), want) / scale
+            x, _, b, _ = args
+            q = min(kw["chunk"], x.shape[2])
+            if ssd_scan.entry(x.dtype, x.shape[3], b.shape[3], q) == wgmma.ENTRY:
+                share = ssd_rounded_once_share(y, *args)
+                print(f"  {dtype}: layer 0's SSD launch, rounded-once share {share:.4%} (gate "
+                      f"{ROUNDED_ONCE:.0%}); plain version "
+                      f"{ssd_rounded_once_share(want, *args):.4%}")
+                assert share <= ROUNDED_ONCE, f"layer 0 SSD rounded-once share {share:.4%}"
     worst = max(range(len(rel)), key=rel.__getitem__)
     print(f"  {dtype}: SSD kernel vs plain on each layer's own operands, of max|y|: worst "
           f"{rel[worst]:.2e} (layer {worst}), median {sorted(rel)[len(rel) // 2]:.2e} "
           f"(gate {tol:.0e}); control scores in bf16 on layer 0: {ctl:.2e}, "
           f"{'rejected' if ctl > tol else 'passes'}")
     assert rel[worst] <= tol, f"{dtype}: layer {worst} SSD kernel vs plain {rel[worst]:.2e}"
-    # the kernel's arithmetic is the same for both dtypes: fp32 must see it
+    # fp32 runs the FFMA kernel, every operand in fp32: its band must see one
+    # bf16 rounding of the scores. The bf16 band is one bf16 ulp of y wide and
+    # cannot; there the rounded-once gate above reads the tensor-core kernel.
     assert dtype != torch.float32 or ctl > tol, "the fp32 gate let bf16 scores through"
 
 
@@ -956,10 +1037,13 @@ def prefill_path(smoke: Smoke, device, cfg=None, batch: int = PREFILL_BATCH,
     1.1x in the mean). Lower-precision controls are read through the
     gates: the fp32 per-layer gate must reject scores rounded to bf16, the
     ratio gate y rounded to fp8 e5m2 (it is coarse: bf16 scores pass it).
-    bf16
-    kernel and plain differ only in how y's fp32 sums round to bf16; 48
-    layers carry those one-ulp flips to several percent of max|logits|,
-    so their direct difference at the logits is printed, not gated.
+    Every bf16 launch is of the tensor-core entry (layer 0's also through
+    the rounded-once gate), every fp32 launch of ``ssd_scan_f32``. In bf16
+    the kernel and the plain version differ in about one element of y in
+    five hundred by one ulp (two-term operands, fp32 sums in another
+    order); 48 layers carry those flips to several percent of
+    max|logits|, so their direct difference at the logits is printed, not
+    gated.
     """
     import numpy as np
     import torch
@@ -981,8 +1065,11 @@ def prefill_path(smoke: Smoke, device, cfg=None, batch: int = PREFILL_BATCH,
     torch.cuda.synchronize()
     print(f"  init_lm(seed=0): {sum(p.numel() for p in params.parameters()):,} parameters, "
           f"{cfg.dtype}, in {time.perf_counter() - t0:.2f} s")
+    q = min(ctx.ssd_chunk, seq)
+    entry16, entry32 = (ssd_scan.entry(dt, cfg.ssm_headdim, cfg.ssm_state, q)
+                        for dt in (cfg.dtype, torch.float32))
     k16, p16, launches, wall = _prefill_runs(params, tokens, cfg, ctx, ssd_scan, n_ssd, warm,
-                                             _ssd_launch_gate)
+                                             _ssd_launch_gate, entry=entry16)
     profile_prefill(params, tokens, cfg, ctx, wall)
     _block_gate(params, tokens, cfg, ctx)
     controls = {}
@@ -990,8 +1077,8 @@ def prefill_path(smoke: Smoke, device, cfg=None, batch: int = PREFILL_BATCH,
         with routed(ssd_scan, control_ssd(kind)):
             controls[kind] = prefill(params, tokens, cfg, ctx)
     params.to(torch.float32)  # in place: the same weights, widened
-    k32, p32, _, _ = _prefill_runs(params, tokens, cfg.with_(dtype=torch.float32), ctx,
-                                   ssd_scan, n_ssd, 1, _ssd_launch_gate)
+    k32, p32, launches32, _ = _prefill_runs(params, tokens, cfg.with_(dtype=torch.float32), ctx,
+                                            ssd_scan, n_ssd, 1, _ssd_launch_gate, entry=entry32)
     del params
     scale = float(p32.abs().max())
     e32 = max_abs(k32, p32)
@@ -1018,6 +1105,8 @@ def prefill_path(smoke: Smoke, device, cfg=None, batch: int = PREFILL_BATCH,
         "bf16 prefill through the kernel is further from fp32 than through the plain SSD"
     assert not passes["control y_e5m2"], "the ratio gate let y in fp8 e5m2 through"
     smoke.kernels["ssd_scan"]["launches"] = launches
+    smoke.kernels["ssd_scan"]["launches_by_entry"] = {f"{entry16} (bf16 prefill)": launches,
+                                                      f"{entry32} (fp32 prefill)": launches32}
     torch.cuda.empty_cache()
 
 

@@ -118,21 +118,38 @@ def ssd_ref(
     b: torch.Tensor,  # (B, G, S, N)
     c: torch.Tensor,  # (B, G, S, N)
     h0: torch.Tensor | None = None,  # (B, H, P, N)
+    *,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Sequential SSD recurrence (the literal state-space model), fp32.
+    """Sequential SSD recurrence (the literal state-space model) in fp32 (or
+    ``compute_dtype``).
 
     h_t = exp(la_t) h_{t-1} + x_t b_t^T,  y_t = h_t c_t; y in x's dtype.
     """
     bb, h, s, p = x.shape
     n = b.shape[-1]
     grp = h // b.shape[1]
-    bf = b.float().repeat_interleave(grp, dim=1)  # (B, H, S, N)
-    cf = c.float().repeat_interleave(grp, dim=1)
-    xf, laf = x.float(), la.float()
-    state = h0.float() if h0 is not None else x.new_zeros((bb, h, p, n), dtype=torch.float32)
+    bf = b.to(compute_dtype).repeat_interleave(grp, dim=1)  # (B, H, S, N)
+    cf = c.to(compute_dtype).repeat_interleave(grp, dim=1)
+    xf, laf = x.to(compute_dtype), la.to(compute_dtype)
+    state = (h0.to(compute_dtype) if h0 is not None
+             else x.new_zeros((bb, h, p, n), dtype=compute_dtype))
     ys = []
     for t in range(s):
         a = torch.exp(laf[:, :, t])[..., None, None]
         state = a * state + xf[:, :, t, :, None] * bf[:, :, t, None, :]
         ys.append(torch.einsum("bhpn,bhn->bhp", state, cf[:, :, t]))
     return torch.stack(ys, dim=2).to(x.dtype)
+
+
+def ssd_rounded_once_share(y: torch.Tensor, x, la, b, c) -> float:
+    """The share of the elements of ``y`` that differ from the fp64 SSD of the
+    same x, la, b, c (:func:`ssd_ref` in fp64) rounded once to y's dtype.
+
+    For bf16 a scan that keeps every operand of its products in fp32 differs
+    in a few elements in ten thousand; one that enters each fp32 operand of
+    a bf16 product as two bf16 terms in about two in a thousand, as one
+    term in about two in five (tests/test_torch_ssd_wgmma.py).
+    """
+    want = ssd_ref(x, la, b, c, compute_dtype=torch.float64).to(y.dtype)
+    return float((y != want).double().mean())

@@ -54,7 +54,8 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.core.precision", "repro_torch.core.tiling",
                 "repro_torch.kernels.ntx_matmul", "repro_torch.kernels.conv2d",
                 "repro_torch.kernels.flash_attention_wgmma",
-                "repro_torch.kernels.conv2d_ntx_wgmma", "repro_torch.kernels.gemm_wgmma"):
+                "repro_torch.kernels.conv2d_ntx_wgmma", "repro_torch.kernels.gemm_wgmma",
+                "repro_torch.kernels.ssd_scan_wgmma"):
         assert mod in res["modules"]
 
 

@@ -21,8 +21,10 @@ from repro_torch.kernels import conv2d, flash_attention, fused, ntx_matmul, ops,
 from repro_torch.kernels import conv2d_ntx_wgmma as conv_wgmma
 from repro_torch.kernels import flash_attention_wgmma as wgmma
 from repro_torch.kernels import gemm_wgmma as gemm
+from repro_torch.kernels import ssd_scan_wgmma
 from repro_torch.kernels.ref import (attention_ref, conv2d_ref, conv_rounded_once_share,
-                                     matmul_ref64, rounded_once_share, ssd_ref)
+                                     matmul_ref64, rounded_once_share, ssd_ref,
+                                     ssd_rounded_once_share)
 from repro_torch.lower import (
     MaxPool2dSpec,
     RegionSpec,
@@ -267,6 +269,133 @@ def test_ssd_kernel_refuses_mixed_devices_and_types(cuda_device):
         ssd_scan.ssd_scan(x.half(), la, b.half(), c.half(), chunk=32)
     with pytest.raises(TypeError):
         ssd_scan.ssd_scan(x, la.double(), b, c, chunk=32)
+
+
+# (B, H, G, S, P, N, chunk) the tensor-core SSD entry takes: the Mamba-2 780M's
+# P 64, N 128, chunk 128; G 2 at N 64 and chunk 64; P 128, N 256; N 192
+SSD_WGMMA_CASES = [
+    (1, 4, 1, 256, 64, 128, 128),
+    (1, 4, 2, 256, 64, 64, 64),
+    (2, 4, 2, 512, 128, 256, 128),
+    (1, 2, 1, 128, 64, 192, 64),
+]
+ROUNDED_ONCE = 1e-2  # chip_smoke.py's gate
+
+
+def _model_views(x, la, b, c):
+    """The (B,S,H,P) -> (B,H,S,P) views that ssm_block passes, same values."""
+    return tuple(t.transpose(1, 2).contiguous().transpose(1, 2) for t in (x, la, b, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,h,g,s,p,n,chunk", SSD_WGMMA_CASES)
+def test_ssd_wgmma_entry_matches_plain_and_ref(cuda_device, bs, h, g, s, p, n, chunk):
+    x, la, b, c = _ssd_inputs(bs, h, g, s, p, n, s + p + n, cuda_device, torch.bfloat16)
+    assert ssd_scan.entry(torch.bfloat16, p, n, chunk) == ssd_scan_wgmma.ENTRY
+    ssd_scan.COUNTER.reset()
+    got = ssd_scan.ssd_scan(x, la, b, c, chunk=chunk)
+    again = ssd_scan.ssd_scan(x, la, b, c, chunk=chunk)
+    want = ssd_scan.ssd_scan_torch(x, la, b, c, chunk=chunk)
+    seq = ssd_ref(x, la, b, c)
+    torch.cuda.synchronize()
+    assert ssd_scan.COUNTER.entries == {ssd_scan_wgmma.ENTRY: 2}
+    assert got.dtype == torch.bfloat16 and got.shape == (bs, h, s, p)
+    assert torch.equal(got, again)  # no atomics: the same bits run to run
+    assert _rel_err(got, want) <= SSD_TOL[torch.bfloat16]
+    assert _rel_err(got, seq) <= SSD_TOL[torch.bfloat16]
+    assert ssd_rounded_once_share(got, x, la, b, c) <= ROUNDED_ONCE
+
+
+@pytest.mark.cuda
+def test_ssd_wgmma_strided_views_give_the_bits_of_contiguous_operands(cuda_device):
+    x, la, b, c = _ssd_inputs(2, 8, 2, 256, 64, 128, 3, cuda_device, torch.bfloat16)
+    views = _model_views(x, la, b, c)
+    assert not any(v.is_contiguous() for v in views)
+    got = ssd_scan.ssd_scan(*views, chunk=128)
+    want = ssd_scan.ssd_scan(x, la, b, c, chunk=128)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_ssd_wgmma_strong_decay_stays_finite(cuda_device):
+    """la down to -4.8 per step: exp above the diagonal would overflow."""
+    bs, h, g, s, p, n = 1, 48, 1, 256, 64, 128
+    x, _, b, c = _ssd_inputs(bs, h, g, s, p, n, 5, cuda_device, torch.bfloat16)
+    a = torch.arange(1, h + 1, dtype=torch.float32, device=cuda_device)
+    la = (-0.1 * a[None, :, None]).expand(bs, h, s).contiguous()
+    got = ssd_scan.ssd_scan(x, la, b, c, chunk=128)
+    want = ssd_scan.ssd_scan_torch(x, la, b, c, chunk=128)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) <= SSD_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_ssd_wgmma_dt_to_one_matches_ssd_ref(cuda_device):
+    """dt up to 1.0 with A up to 48 and G 2: la to -48 per step, held to the
+    sequential ssd_ref (cum_i - cum_j cancels in fp32 in every dual form)."""
+    bs, h, g, s, p, n = 1, 48, 2, 256, 64, 128
+    x, _, b, c = _ssd_inputs(bs, h, g, s, p, n, 6, cuda_device, torch.bfloat16)
+    dt = torch.as_tensor(np.random.RandomState(6).rand(bs, h, s), dtype=torch.float32)
+    la = (-dt * torch.arange(1, h + 1, dtype=torch.float32)[None, :, None]).to(cuda_device)
+    got = ssd_scan.ssd_scan(x, la, b, c, chunk=128)
+    seq = ssd_ref(x, la, b, c)
+    torch.cuda.synchronize()
+    assert float(la.min()) < -40
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, seq) <= SSD_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_ssd_wgmma_matches_its_emulation_and_the_gate_rejects_one_term(cuda_device):
+    x, la, b, c = _ssd_inputs(1, 8, 1, 512, 64, 128, 7, cuda_device, torch.bfloat16)
+    got = ssd_scan.ssd_scan(x, la, b, c, chunk=128)
+    emu = ssd_scan_wgmma.emulate(x, la, b, c, chunk=128)
+    one = ssd_scan_wgmma.emulate(x, la, b, c, chunk=128, terms=1)
+    torch.cuda.synchronize()
+    assert float((got != emu).double().mean()) <= 1e-3  # fp32 sums in another order
+    assert ssd_rounded_once_share(got, x, la, b, c) <= ROUNDED_ONCE
+    assert ssd_rounded_once_share(one, x, la, b, c) > ROUNDED_ONCE
+
+
+@pytest.mark.cuda
+def test_ssd_launches_are_counted_per_entry(cuda_device):
+    """fp32 on the FFMA entry; bf16 on the tensor-core entry where it takes
+    the shape and on the FFMA bf16 entry elsewhere, or when named."""
+    ssd_scan.COUNTER.reset()
+    for dtype, p, n, chunk in ((torch.float32, 64, 128, 128), (torch.bfloat16, 64, 128, 128),
+                               (torch.bfloat16, 32, 32, 64), (torch.bfloat16, 64, 64, 64)):
+        ssd_scan.ssd_scan(*_ssd_inputs(1, 2, 1, 128, p, n, 1, cuda_device, dtype), chunk=chunk)
+    x, la, b, c = _ssd_inputs(1, 2, 1, 128, 64, 128, 1, cuda_device, torch.bfloat16)
+    ffma = ssd_scan.launch("ssd_scan_bf16", x, la, b, c)
+    torch.cuda.synchronize()
+    assert ssd_scan.COUNTER.entries == {
+        "ssd_scan_f32": 1, "ssd_scan_bf16": 2, ssd_scan_wgmma.ENTRY: 2}
+    assert (ssd_scan.COUNTER.launches, ssd_scan.COUNTER.plain_calls) == (5, 0)
+    assert _rel_err(ffma, ssd_scan.ssd_scan_torch(x, la, b, c)) <= SSD_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_ssd_wgmma_refuses_operands_tma_cannot_read(cuda_device):
+    x, la, b, c = _ssd_inputs(1, 2, 1, 128, 64, 128, 2, cuda_device, torch.bfloat16)
+    wide = torch.zeros(1, 1, 128, 136, dtype=torch.bfloat16, device=cuda_device)[..., :128]
+    wide.copy_(b)
+    assert wide.stride(2) * 2 % 16 == 0  # 272-byte rows: TMA reads them
+    ssd_scan.ssd_scan(x, la, wide, c)
+    odd = torch.zeros(1, 1, 128, 132, dtype=torch.bfloat16, device=cuda_device)[..., :128]
+    odd.copy_(b)  # rows of 264 bytes
+    shifted = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:]
+    shifted = shifted.view(x.shape)
+    shifted.copy_(x)
+    ssd_scan.COUNTER.reset()
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        ssd_scan.ssd_scan(x, la, odd, c)
+    with pytest.raises(ValueError, match="16-byte-aligned base"):
+        ssd_scan.ssd_scan(shifted, la, b, c)
+    with pytest.raises(ValueError, match="unit last stride"):
+        ssd_scan.ssd_scan(x, la, b, c.transpose(2, 3).contiguous().transpose(2, 3))
+    assert ssd_scan.COUNTER.launches == 0
 
 
 # (B, Hq, Hkv, Sq, Skv, D, causal, window): tests/kernels/test_flash_attention.py,
