@@ -20,14 +20,14 @@ main path, drives the main paths and checks that each went through its kernels:
   depth (24 attention + MLP layers, d_model 1024, 16 heads of 64, vocab
   151,936) on 2 x 2,048 tokens, in bf16 and in fp32 (the flash-attention
   kernels, 24 launches per prefill: bf16 on the tensor-core kernel,
-  fp32 on the FFMA kernel);
+  fp32 on the 3xTF32 tensor-core kernel);
 * the NTX kernel API at the paper's GoogLeNet layer widths, batch 32:
   ``repro_torch.kernels.ops.matmul`` (plain and compensated, fp32 and bf16)
   on the four layers' im2col products and on 1024^3 (the same tensor-core
   GEMM: bf16 as it is, fp32 as 3xTF32), then
   ``repro_torch.kernels.conv2d_ntx`` on the four layers in fp32 and in bf16
-  (the direct-convolution kernels: bf16 L1-L3 on the tensor-core kernel,
-  L0 and fp32 on the FFMA kernel).
+  (the direct-convolution kernels: L1-L3 on the tensor-core kernels, bf16
+  as it is and fp32 as 3xTF32, L0's Cin 3 on the FFMA kernel).
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` JSON line, and ``{"ok": true, "device": {...}}``.
@@ -76,6 +76,18 @@ ATTN_BF16 = 1e-2
 # moves about 0.02 %, p as two bf16 terms about 0.2 %, p as one bf16 term
 # about 38 % (the CPU emulation of tests/test_torch_attention_wgmma.py)
 ROUNDED_ONCE = 1e-2
+# fp32 attention and conv on the 3xTF32 tensor-core kernels are also held by
+# ntx_matmul's RMS gate (MM_RMS): RMS error against the fp64 result at most
+# 1.05 x the plain version's. Attention reads it at these cases; the 1xTF32
+# product (hi.hi alone), q and k rounded to bf16, and p rounded to bf16 must
+# fail it. The conv reads it at every layer the tensor-core kernel takes.
+# The case whose rows see at most 32 keys is read, not gated: hi + lo keep
+# about 22 of fp32's 24 significand bits and lo.lo is dropped, so every
+# 3xTF32 product is off by up to about 2**-21 of itself where the plain
+# version's fp32 product is off by 2**-24; long sums hide that under their
+# own rounding, sums of a few dozen terms do not (1.19 x on an H100).
+ATTN_RMS_CASES = ("qwen prefill f32", "GQA 32/8 D 128 f32", "KV tail 600 f32",
+                  "window 1024 f32")
 # Qwen1.5-0.5B prefill: batch x tokens, ids below the vocab 151,936
 QWEN_BATCH, QWEN_SEQ, QWEN_TOKEN_HIGH = 2, 2048, 151_936
 # the paper's GoogLeNet conv layers (Tables 2-4; CONV_LAYERS["googlenet"] of
@@ -207,9 +219,12 @@ def build_kernels():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name}: {line.strip()}")
     # the tensor-core kernels must run on wgmma (HGMMA) and TMA (UTMALDG); the
-    # conv's gather on cp.async (LDGSTS)
+    # convs' gathers on cp.async (LDGSTS); the fp32 attention loads through
+    # registers (it splits every element on the way into shared memory)
     for name, ops in (("flash_attention_wgmma", ("HGMMA", "UTMALDG")),
+                      ("flash_attention_tf32", ("HGMMA",)),
                       ("conv2d_ntx_wgmma", ("HGMMA", "UTMALDG", "LDGSTS")),
+                      ("conv2d_ntx_tf32", ("HGMMA", "UTMALDG", "LDGSTS")),
                       ("ntx_gemm_wgmma", ("HGMMA",)),
                       ("ssd_scan_wgmma", ("HGMMA", "UTMALDG"))):
         sass = subprocess.run([str(Path(build.nvcc_path()).parent / "cuobjdump"), "-sass",
@@ -218,6 +233,15 @@ def build_kernels():
         counts = {op: sass.count(op) for op in ops}
         print(f"  {name} SASS: {counts}")
         assert all(counts.values()), f"{name} lacks an instruction it is built on: {counts}"
+    # the fp32 attention moves registers between warpgroups by setmaxnreg; with
+    # fewer registers than its split takes the block would wait forever
+    from repro_torch.kernels import flash_attention_tf32 as attn_tf32
+
+    for d in attn_tf32.HEAD_DIMS:
+        regs, needed = attn_tf32.kernel_registers(d)
+        print(f"  flash_attention_tf32 D {d}: built with {regs} registers a thread; its "
+              f"setmaxnreg split needs {needed}")
+        assert needed == attn_tf32.registers_needed(d) and regs >= needed, (d, regs, needed)
 
 
 def ptxas_summary(name: str) -> str:
@@ -1217,6 +1241,7 @@ def check_attention(smoke: Smoke, device, seq: int = QWEN_SEQ):
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_tf32 as tf32
     from repro_torch.kernels import flash_attention_wgmma as wgmma
     from repro_torch.kernels.ref import attention_ref, rounded_once_share
 
@@ -1230,8 +1255,9 @@ def check_attention(smoke: Smoke, device, seq: int = QWEN_SEQ):
         # plain: KV blocks 512 + 88; kernel: tiles 9 x 64 + 24, in q and in kv
         ("KV tail 600 f32", (2, 16, 16, 600, 600, 64), None, f32, 4),
         ("no visible key f32", (1, 4, 2, 256, 64, 64), 32, f32, 5),
+        ("window 1024 f32", (1, 16, 16, seq, seq, 64), 1024, f32, 6),
     ]
-    worst, outs = 0.0, {}
+    worst, outs, ratios = 0.0, {}, {}
     print(f"{'case':>26} {'max|o|':>8} {'kernel-plain':>12} {'kernel-ref':>11} "
           f"{'plain-ref':>10}  (in units of the gate)  entry")
     for label, shape, window, dtype, seed in cases:
@@ -1257,6 +1283,27 @@ def check_attention(smoke: Smoke, device, seq: int = QWEN_SEQ):
             print(f"{'':>26} rounded-once share {share:.4%} (gate {ROUNDED_ONCE:.0%}); "
                   f"plain version {rounded_once_share(want, q, k, v, **kw):.4%}")
             assert share <= ROUNDED_ONCE, f"{label}: rounded-once share {share:.4%}"
+        if fa.entry(dtype, shape[5]) == tf32.ENTRY:
+            ref64 = attention_ref(q, k, v, compute_dtype=torch.float64, **kw)
+            ratios[label] = ratio = rms_ratio(got, ref64, want)
+            gated = label in ATTN_RMS_CASES
+            note = "" if gated else (
+                "; not gated: rows see at most 32 keys, and so short a sum does not hide "
+                "3xTF32's product error (hi + lo keep about 22 of 24 bits, lo.lo dropped)")
+            print(f"{'':>26} RMS vs fp64 {ratio:.4f} x the plain version's (gate {MM_RMS}{note})")
+            assert not gated or ratio <= MM_RMS, f"{label}: RMS vs fp64 {ratio:.4f} x plain's"
+            if label == "qwen prefill f32":
+                ctl = {"1xTF32": tf32.emulate(q, k, v, terms=1, **kw),
+                       **{kind: control_attention(kind)(q, k, v, **kw)
+                          for kind in CONTROLS["float32"]}}
+                for kind, o in ctl.items():
+                    r = rms_ratio(o, ref64, want)
+                    print(f"{'':>26} control {kind}: RMS {r:.1f}x ("
+                          f"{'rejected' if r > MM_RMS else 'passes'}); the band reads "
+                          f"{attn_gate(o, want):.3f}")
+                    assert r > MM_RMS, f"the attention RMS gate let the {kind} control through"
+                del ctl
+            del ref64
     none = outs["no visible key f32"]
     assert not bool(none[:, :, 95:].any()), "rows with no visible key are not exactly 0"
     assert bool((none[:, :, :95].abs().amax(dim=-1) > 0).all())
@@ -1264,13 +1311,15 @@ def check_attention(smoke: Smoke, device, seq: int = QWEN_SEQ):
 
     for label, shape, dtype, seed in (("qwen prefill f32", (2, 16, 16, seq, seq, 64), f32, 0),
                                       ("qwen prefill bf16", (2, 16, 16, seq, seq, 64), bf16, 1),
+                                      ("GQA 32/8 D 128 f32", (1, 32, 8, seq, seq, 128), f32, 2),
                                       ("GQA 32/8 D 128 bf16", (1, 32, 8, seq, seq, 128), bf16, 2)):
         same = fa.flash_attention(*attention_inputs(*shape, dtype, device, seed,
                                                     layout="contiguous"))
         again = fa.flash_attention(*attention_inputs(*shape, dtype, device, seed))
         assert torch.equal(same, outs[label]), f"{label}: strided and contiguous operands differ"
         assert torch.equal(again, outs[label]), f"{label}: two runs gave different bits"
-    print("  qwen f32 / bf16, GQA D 128 bf16: strided == contiguous and run == run, identical bits")
+    print("  qwen and GQA D 128, f32 and bf16: strided == contiguous and run == run, identical "
+          "bits")
 
     for label, kind in (("qwen prefill f32", "qk_bf16"), ("qwen prefill f32", "p_bf16"),
                         ("qwen prefill bf16", "o_e5m2")):
@@ -1293,7 +1342,13 @@ def check_attention(smoke: Smoke, device, seq: int = QWEN_SEQ):
     e_ffma = attn_gate(ffma, fa.flash_attention_torch(q, k, v))
     print(f"  FFMA bf16 entry at the qwen shape vs plain: {e_ffma:.3f} of the gate")
     assert e_ffma <= 1, f"FFMA bf16 entry vs plain {e_ffma:.3f} of the gate"
-    times = {}
+    q32, k32, v32 = attention_inputs(2, 16, 16, seq, seq, 64, f32, device, 0)
+    e_ffma32 = attn_gate(fa.launch("flash_attention_f32", q32, k32, v32),
+                         fa.flash_attention_torch(q32, k32, v32))
+    print(f"  FFMA fp32 entry at the qwen shape vs plain: {e_ffma32:.3f} of the gate")
+    assert e_ffma32 <= 1, f"FFMA fp32 entry vs plain {e_ffma32:.3f} of the gate"
+    del q32, k32, v32
+    times, bounds = {}, {}
     for dtype in (f32, bf16):
         q, k, v = attention_inputs(2, 16, 16, seq, seq, 64, dtype, device, 1)
         times[dtype] = (
@@ -1303,15 +1358,22 @@ def check_attention(smoke: Smoke, device, seq: int = QWEN_SEQ):
                                                            enable_gqa=False)),
         )
         nbytes, flops = attention_work(q, k, causal=True, window=None)
-        bnd, by = bound_ms(nbytes, flops, str(dtype).split(".")[-1])
+        # fp32 on the tensor cores: three tf32 products for each product
+        bounds[dtype] = bnd, by = (bound_ms(nbytes, 3 * flops, "tf32") if dtype == f32
+                                   else bound_ms(nbytes, flops, str(dtype).split(".")[-1]))
         ms, plain, lib = times[dtype]
         print(f"flash_attention at B 2, H 16, S {seq}, D 64, causal, {dtype}: kernel "
               f"({fa.entry(dtype, 64)}) {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, "
               f"bound {bnd:.5f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP, {by}; at the "
-              f"fp32 rate the kernel computes in {bound_ms(nbytes, flops)[0]:.5f} ms)")
+              f"fp32-FFMA rate {bound_ms(nbytes, flops)[0]:.5f} ms)")
+        if dtype == f32:
+            ffma32_ms = time_ms(lambda: fa.launch("flash_attention_f32", q, k, v))
+            print(f"  the FFMA fp32 entry (flash_attention.cu) at the same fp32 shape: "
+                  f"{ffma32_ms:.4f} ms")
     ffma_ms = time_ms(lambda: fa.launch("flash_attention_bf16", q, k, v))
     print(f"  the FFMA bf16 entry (flash_attention.cu) at the same bf16 shape: {ffma_ms:.4f} ms")
     ms, plain, lib = times[bf16]
+    bnd, by = bounds[bf16]
     smoke.kernels["flash_attention"] = {
         "name": "flash_attention",
         "route": "cuda",
@@ -1325,29 +1387,49 @@ def check_attention(smoke: Smoke, device, seq: int = QWEN_SEQ):
         "bound_by": by,
         "library_ms": lib,
         "at": "B 2, H 16, S 2,048, D 64, causal, bf16",
+        "f32_source": "src/repro_torch/kernels/csrc/flash_attention_tf32.cu",
+        "f32_ms": times[f32][0],
+        "f32_ffma_ms": ffma32_ms,
+        "f32_plain_ms": times[f32][1],
+        "f32_library_ms": times[f32][2],
+        "f32_bound_ms": bounds[f32][0],
+        "f32_rms_ratio": ratios,
     }
 
 
 def _attn_launch_gate(calls, dtype):
     """Each attention launch vs the plain version; a control on layer 0 must fail.
 
-    Launches of the tensor-core kernel also read layer 0 through the
-    rounded-once gate, with the p_bf16 control, which it must reject.
+    Launches of the bf16 tensor-core kernel also read layer 0 through the
+    rounded-once gate, with the p_bf16 control, which it must reject; those
+    of the fp32 one through the RMS gate, with the 1xTF32, qk_bf16 and
+    p_bf16 controls, which it must reject.
     """
+    import torch
+
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_tf32 as tf32
     from repro_torch.kernels import flash_attention_wgmma as wgmma
-    from repro_torch.kernels.ref import rounded_once_share
+    from repro_torch.kernels.ref import attention_ref, rounded_once_share
 
     kinds = CONTROLS[str(dtype).split(".")[-1]]
-    units, ctl, shares = [], {}, None
+    units, ctl, shares, ratios = [], {}, None, None
     for i, (args, kw, o) in enumerate(calls):
         want = fa.flash_attention_torch(*args, **kw)
         units.append(attn_gate(o, want))
         if i == 0:
             ctl = {kind: attn_gate(control_attention(kind)(*args, **kw), want) for kind in kinds}
-            if fa.entry(dtype, args[0].shape[3]) == wgmma.ENTRY:
+            entry = fa.entry(dtype, args[0].shape[3])
+            if entry == wgmma.ENTRY:
                 shares = [rounded_once_share(x, *args, **kw) for x in
                           (o, want, control_attention("p_bf16")(*args, **kw))]
+            elif entry == tf32.ENTRY:
+                ref64 = attention_ref(*args, compute_dtype=torch.float64, **kw)
+                ratios = {"kernel": rms_ratio(o, ref64, want),
+                          "1xTF32": rms_ratio(tf32.emulate(*args, terms=1, **kw), ref64, want),
+                          **{kind: rms_ratio(control_attention(kind)(*args, **kw), ref64, want)
+                             for kind in kinds}}
+                del ref64
     worst = max(range(len(units)), key=units.__getitem__)
     print(f"  {dtype}: attention kernel vs plain on each layer's own operands, in units of "
           f"the gate: worst {units[worst]:.3f} (layer {worst}), median "
@@ -1361,6 +1443,15 @@ def _attn_launch_gate(calls, dtype):
               f"{shares[2]:.4%}, {'rejected' if shares[2] > ROUNDED_ONCE else 'passes'}")
         assert shares[0] <= ROUNDED_ONCE, f"layer 0 rounded-once share {shares[0]:.4%}"
         assert shares[2] > ROUNDED_ONCE, "the layer-0 rounded-once gate let p_bf16 through"
+    if ratios is not None:
+        r = ratios.pop("kernel")
+        print(f"  {dtype}: layer 0's launch, RMS vs fp64 {r:.4f} x the plain version's (gate "
+              f"{MM_RMS}); controls: " + ", ".join(
+                  f"{k} {u:.1f}x ({'rejected' if u > MM_RMS else 'passes'})"
+                  for k, u in ratios.items()))
+        assert r <= MM_RMS, f"layer 0 attention RMS vs fp64 {r:.4f} x the plain version's"
+        for kind, u in ratios.items():
+            assert u > MM_RMS, f"the layer-0 RMS gate let the {kind} control through"
 
 
 def _attn_block_gate(params, tokens, cfg):
@@ -1402,8 +1493,8 @@ def qwen_prefill_path(smoke: Smoke, device, cfg=None, batch: int = QWEN_BATCH,
                       seq: int = QWEN_SEQ, token_high: int = QWEN_TOKEN_HIGH, warm: int = 3):
     """lm.prefill of Qwen1.5-0.5B at full width and depth, bf16 then fp32.
 
-    fp32 runs on the bf16 weights widened. bf16 launches only the tensor-core
-    entry, fp32 only the FFMA one (24 of 24 each). Gates: in both dtypes each
+    fp32 runs on the bf16 weights widened. bf16 launches only the bf16
+    tensor-core entry, fp32 only the 3xTF32 one (24 of 24 each). Gates: in both dtypes each
     of the 24 attention launches against the plain version on its own
     operands, and layer 0's attention_block (ATTN_F32 / ATTN_BF16); in bf16
     layer 0's launch through the rounded-once gate; fp32 logits, kernel vs
@@ -1440,8 +1531,9 @@ def qwen_prefill_path(smoke: Smoke, device, cfg=None, batch: int = QWEN_BATCH,
     _attn_block_gate(params, tokens, cfg)
     params.to(torch.float32)  # in place: the same weights, widened
     cfg32 = cfg.with_(dtype=torch.float32)
-    k32, p32, _, wall = _prefill_runs(params, tokens, cfg32, ctx, fa, n_attn, 1,
-                                      _attn_launch_gate, fa.entry(cfg32.dtype, cfg.head_dim))
+    k32, p32, launches32, wall = _prefill_runs(params, tokens, cfg32, ctx, fa, n_attn, warm,
+                                               _attn_launch_gate,
+                                               fa.entry(cfg32.dtype, cfg.head_dim))
     profile_prefill(params, tokens, cfg32, ctx, wall)
     _attn_block_gate(params, tokens, cfg32)
     scale = float(p32.abs().max())
@@ -1464,6 +1556,9 @@ def qwen_prefill_path(smoke: Smoke, device, cfg=None, batch: int = QWEN_BATCH,
           f"{float((p16 - p32).abs().mean()) / scale:.3e}; kernel vs plain directly "
           f"{max_abs(k16, p16) / scale:.3e}")
     smoke.kernels["flash_attention"]["launches"] = launches
+    smoke.kernels["flash_attention"]["launches_by_entry"] = {
+        f"{fa.entry(cfg.dtype, cfg.head_dim)} ({cfg.dtype} prefill)": launches,
+        f"{fa.entry(cfg32.dtype, cfg.head_dim)} (fp32 prefill)": launches32}
     torch.cuda.empty_cache()
 
 
@@ -1500,6 +1595,11 @@ def mm_cases(layers=GOOGLENET, batch: int = NTX_BATCH, big: int = 1024):
 
 def rms(x) -> float:
     return float(x.double().square().mean().sqrt())
+
+
+def rms_ratio(got, ref64, plain) -> float:
+    """RMS error of ``got`` against the fp64 result over the plain version's."""
+    return rms(got.double() - ref64) / max(rms(plain.double() - ref64), 1e-300)
 
 
 def check_ntx_matmul(smoke: Smoke, device, cases=None, comp_shape=COMP_SHAPE):
@@ -1763,21 +1863,27 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
     First the path: every layer in fp32 and bf16 through ``conv2d_ntx``
     (inputs padded with F.pad; fp32 L0's a strided NHWC view of NCHW data),
     launch counts per C entry set to 0 just before and read just after: bf16
-    with Cin and Cout multiples of 64 on the tensor-core entry, the rest on
-    the FFMA entry. Gates: kernel vs the plain version and vs the fp64
-    im2col conv at CONV_F32 / CONV_BF16, the same bits on a second run and
-    at another tile_h, and fp32 L0 on its strided input equal to L0 on a
-    contiguous copy; bf16 also the rounded-once gate. Controls: the fp32
-    kernel's output rounded through bf16, read through the fp32 gate, and
-    the conv that rounds to bf16 per stage, read through the rounded-once
-    gate, must be rejected. Times: CUDA events over 20 calls (ms) and the
-    kernels' device time under the profiler (dev ms); at L1 bf16 the FFMA
-    bf16 entry, called directly, is timed beside the tensor-core kernel.
+    with Cin and Cout multiples of 64 on the bf16 tensor-core entry, fp32
+    with Cin a multiple of 32 and Cout of 64 on the 3xTF32 one, the rest
+    (L0) on the FFMA entry. Gates: kernel vs the plain version and vs the
+    fp64 im2col conv at CONV_F32 / CONV_BF16, the same bits on a second run
+    and at another tile_h, and fp32 L0 on its strided input equal to L0 on a
+    contiguous copy; bf16 also the rounded-once gate, fp32 on the 3xTF32
+    entry also the RMS gate (MM_RMS). Controls: the fp32 kernel's output
+    rounded through bf16, read through the fp32 band and the RMS gate, the
+    1xTF32 product (hi.hi alone), read through the RMS gate (the band's
+    reading printed), and the conv that rounds to bf16 per stage, read
+    through the rounded-once gate, must be rejected. Times: CUDA events over
+    20 calls (ms) and the kernels' device time under the profiler (dev ms);
+    at L1 the FFMA entry, called directly, is timed beside each tensor-core
+    kernel. Bounds: fp32 on the 3xTF32 entry at three tf32 products each
+    (the fp32-FFMA rate's figure printed beside), bf16 at the bf16 rate.
     """
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import conv2d
+    from repro_torch.kernels import conv2d_ntx_tf32 as tf32
     from repro_torch.kernels import conv2d_ntx_wgmma as wgmma
     from repro_torch.kernels.ref import conv2d_ref, conv_rounded_once_share
 
@@ -1794,6 +1900,8 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
     for _, (_, _, _, cin, *_, cout), dt in cases:
         e = conv2d.entry(dt, cin, cout)
         want_entries[e] = want_entries.get(e, 0) + 1
+        if e == tf32.ENTRY:  # each call's first kernel splits w
+            want_entries[tf32.SPLIT] = want_entries.get(tf32.SPLIT, 0) + 1
     conv2d.COUNTER.reset()
     outs = {label: conv2d.conv2d_ntx(x, wt, stride=s) for label, (x, wt, s) in inputs.items()}
     torch.cuda.synchronize()
@@ -1804,6 +1912,8 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
     assert entries == want_entries and plain_calls == 0, (entries, want_entries, plain_calls)
     assert entries.get(wgmma.ENTRY, 0) == sum(
         wgmma.takes(dt, layer[3], layer[7]) for _, layer, dt in cases) > 0, entries
+    assert entries.get(tf32.ENTRY, 0) == sum(
+        tf32.takes(dt, layer[3], layer[7]) for _, layer, dt in cases) > 0, entries
 
     print(f"{'case':>12} {'out (N,OH,OW,C)':>20} {'vs plain':>8} {'vs f64':>7} {'control':>8} "
           f"{'ms':>8} {'dev ms':>8} {'plain':>8} {'conv2d':>8} {'dev':>8} {'bound':>8}  "
@@ -1816,6 +1926,16 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
         want = conv2d.conv2d_ntx_torch(x, wt, stride=s)
         ref64 = conv2d_ref(x.double(), wt.double(), stride=s)
         u_plain, u_ref = conv_gate(y, want, dt), conv_gate(y, ref64, dt)
+        rms_row = {}
+        if conv2d.entry(dt, cin, cout) == tf32.ENTRY:
+            one = tf32.emulate(x, wt, stride=s, terms=1)
+            rms_row = {"kernel": rms_ratio(y, ref64, want), "1xTF32": rms_ratio(one, ref64, want),
+                       "output via bf16": rms_ratio(y.bfloat16(), ref64, want)}
+            print(f"{'':>12} {label} on {tf32.ENTRY}: RMS vs fp64 {rms_row['kernel']:.4f} x the "
+                  f"plain version's (gate {MM_RMS}); controls: 1xTF32 {rms_row['1xTF32']:.1f}x, output "
+                  f"via bf16 {rms_row['output via bf16']:.1f}x (both must be rejected); the band "
+                  f"reads 1xTF32 at {conv_gate(one, want, dt):.2f}")
+            del one
         del ref64
         assert y.shape == (batch, oh, ow, cout) and y.dtype == dt, (y.shape, y.dtype)
         assert bool(torch.isfinite(y).all()), f"{label}: non-finite output"
@@ -1851,24 +1971,69 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
         lib_dev = device_ms(lambda: F.conv2d(x_cl, w_oihw, stride=s))
         es = x.element_size()
         nbytes = es * (x.numel() + wt.numel() + y.numel())
-        bnd, by = bound_ms(nbytes, 2.0 * batch * oh * ow * cout * k * k * cin, dtype_name(dt))
+        flops = 2.0 * batch * oh * ow * cout * k * k * cin
+        bnd, by = (bound_ms(nbytes, 3 * flops, "tf32") if rms_row
+                   else bound_ms(nbytes, flops, dtype_name(dt)))
         print(f"{label:>12} {str((batch, oh, ow, cout)):>20} {u_plain:>8.4f} {u_ref:>7.4f} "
               f"{ctl_text:>8} {ms:>8.4f} {dev:>8.4f} {plain:>8.4f} {lib:>8.4f} {lib_dev:>8.4f} "
               f"{bnd:>8.5f}")
         worst = max(worst, max_abs(y, want))
         rows[label] = {"ms": ms, "device_ms": dev, "plain_ms": plain, "library_ms": lib,
-                       "library_device_ms": lib_dev, "bound_ms": bnd, "bound_by": by, **row}
+                       "library_device_ms": lib_dev, "bound_ms": bnd, "bound_by": by,
+                       "bound_ffma_ms": bound_ms(nbytes, flops, "float32")[0], **row}
         assert u_plain <= 1 and u_ref <= 1, \
             f"{label}: kernel vs plain {u_plain:.3f}, vs fp64 {u_ref:.3f} of the gate"
+        if rms_row:
+            rows[label]["rms_ratio"] = rms_row["kernel"]
+            assert rms_row.pop("kernel") <= MM_RMS, f"{label}: RMS vs fp64 over the plain's"
+            for kind, r in rms_row.items():
+                assert r > MM_RMS, f"{label}: the RMS gate let the {kind} control through"
         if dt == torch.float32:
             assert ctl > 1, f"{label}: the fp32 gate let the bf16-rounded control through"
         else:
             assert share <= ROUNDED_ONCE, f"{label}: rounded-once share {share:.4%}"
             assert ctl > ROUNDED_ONCE, f"{label}: the rounded-once gate let the control through"
     print("  run == run, tile_h 8 == tile_h 3 and strided L0 == contiguous L0: identical "
-          "bits; controls rejected (fp32: output rounded to bf16; bf16: sums rounded to bf16 "
-          "per stage); 'conv2d' is F.conv2d on the NHWC tensors as channels-last NCHW, cuDNN "
-          "TF32 off; 'dev' columns: device time under torch.profiler")
+          "bits; controls rejected (fp32: output rounded to bf16, and on the 3xTF32 entry "
+          "1xTF32; bf16: sums rounded to bf16 per stage); 'conv2d' is F.conv2d on the NHWC "
+          "tensors as channels-last NCHW, cuDNN TF32 off; 'dev' columns: device time under "
+          "torch.profiler; 'bound' for fp32 on the 3xTF32 entry at 495 TFLOP/s")
+    l1_32 = next((lab for lab, layer, dt in cases if dt == torch.float32
+                  and tf32.takes(dt, layer[3], layer[7])), None)
+    f32_row = {}
+    if l1_32 is not None:  # the FFMA fp32 entry beside the 3xTF32 kernel
+        x, wt, s = inputs[l1_32]
+        ffma = conv2d.launch(conv2d.FFMA, x, wt, stride=s)
+        u_ffma = conv_gate(ffma, conv2d.conv2d_ntx_torch(x, wt, stride=s), torch.float32)
+        assert u_ffma <= 1, f"{l1_32}: FFMA fp32 entry vs plain {u_ffma:.3f} of the gate"
+        ffma32_ms = time_ms(lambda: conv2d.launch(conv2d.FFMA, x, wt, stride=s))
+        # a call is two kernels: the split of w, then the conv
+        by_kernel = kernel_ms(lambda: conv2d.conv2d_ntx(x, wt, stride=s))
+        split_dev = sum(t for name, t in by_kernel.items() if "split_w_kernel" in name)
+        conv_dev = sum(t for name, t in by_kernel.items() if "conv_tf32_kernel" in name)
+        r = rows[l1_32]
+        print(f"  {l1_32}: {tf32.ENTRY} {r['ms']:.4f} ms (device {r['device_ms']:.4f}: "
+              f"split_w_kernel {split_dev:.4f}, conv_tf32_kernel {conv_dev:.4f}; "
+              f"{entries[tf32.SPLIT]} split launches in the path run), FFMA fp32 "
+              f"entry {ffma32_ms:.4f} ms (vs plain {u_ffma:.3f} of the gate), cuDNN fp32 "
+              f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}; at the "
+              f"fp32-FFMA rate {r['bound_ffma_ms']:.5f}); {ptxas_summary(tf32.LIB)}")
+        f32_row = {
+            "f32_source": "src/repro_torch/kernels/csrc/conv2d_ntx_tf32.cu",
+            "f32_ms": r["ms"],
+            "f32_device_ms": None if math.isnan(r["device_ms"]) else r["device_ms"],
+            "f32_split_launches": entries[tf32.SPLIT],
+            "f32_split_device_ms": split_dev if by_kernel else None,
+            "f32_conv_device_ms": conv_dev if by_kernel else None,
+            "f32_ffma_ms": ffma32_ms,
+            "f32_plain_ms": r["plain_ms"],
+            "f32_library_ms": r["library_ms"],
+            "f32_bound_ms": r["bound_ms"],
+            "f32_rms_ratio": {lab: rows[lab]["rms_ratio"] for lab in rows
+                              if "rms_ratio" in rows[lab]},
+            "f32_at": f"GoogLeNet {l1_32.split()[0]} at batch {batch}, fp32",
+        }
 
     l1 = next((lab for lab, layer, dt in cases if dt == torch.bfloat16
                and wgmma.takes(dt, layer[3], layer[7])), None)
@@ -1895,16 +2060,21 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
             "bf16_rounded_once": r["rounded_once"],
             "bf16_at": f"GoogLeNet {l1.split()[0]} at batch {batch}, bf16",
         }
-    fp32 = rows.get("L1 float32", rows[cases[0][0]])
+    lab32 = "L1 float32" if "L1 float32" in rows else cases[0][0]
+    fp32 = rows[lab32]
+    _, layer32, dt32 = next(c for c in cases if c[0] == lab32)
+    lib32 = conv2d.ENTRIES[conv2d.entry(dt32, layer32[3], layer32[7])]
     smoke.kernels["conv2d_ntx"] = {
         "name": "conv2d_ntx",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/conv2d_ntx.cu",
+        "source": f"src/repro_torch/kernels/csrc/{lib32}.cu",
         "replaces": "src/repro/kernels/conv2d.py:53",
         "launches": launches,
+        "launches_by_entry": entries,
         "max_abs_err": worst,
         **{key: fp32[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "at": "GoogLeNet L1 at batch 32, fp32",
+        **f32_row,
         **bf16_row,
     }
 

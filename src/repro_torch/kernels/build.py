@@ -33,7 +33,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("streaming_mm", "fused_region", "ssd_scan", "flash_attention",
            "flash_attention_wgmma", "ntx_matmul", "conv2d_ntx", "conv2d_ntx_wgmma",
-           "ntx_gemm_wgmma", "ssd_scan_wgmma")
+           "ntx_gemm_wgmma", "ssd_scan_wgmma", "flash_attention_tf32", "conv2d_ntx_tf32")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -10,11 +10,14 @@ and runs the plain version :func:`conv2d_ntx_torch` on CPU tensors.
 :func:`entry` picks the kernel from the dtype and the channel counts: bf16
 with Cin and Cout multiples of 64 goes to the tensor-core kernel
 ``csrc/conv2d_ntx_wgmma.cu`` (an implicit GEMM on ``wgmma``, 128 output
-pixels per CTA; see :mod:`repro_torch.kernels.conv2d_ntx_wgmma`), every
-fp32 call and bf16 with other channel counts to the FFMA kernel
-``csrc/conv2d_ntx.cu`` (one CTA per image, row tile and 64-channel Cout
-tile). There is no fallback from one to the other. Both read x through its
-strides and sum each output in one order that does not depend on ``tile_h``.
+pixels per CTA; see :mod:`repro_torch.kernels.conv2d_ntx_wgmma`), fp32
+with Cin a multiple of 32 and Cout a multiple of 64 to the tensor-core
+kernel ``csrc/conv2d_ntx_tf32.cu`` (the same implicit GEMM in 3xTF32; see
+:mod:`repro_torch.kernels.conv2d_ntx_tf32`), and other channel counts
+(GoogLeNet's Cin 3 stem) to the FFMA kernel ``csrc/conv2d_ntx.cu`` (one CTA
+per image, row tile and 64-channel Cout tile). There is no fallback from
+one to another. All read x through its strides and sum each output in one
+order that does not depend on ``tile_h``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import conv2d_ntx_tf32 as tf32
 from repro_torch.kernels import conv2d_ntx_wgmma as wgmma
 from repro_torch.kernels.ops import LaunchCounter, strict_fp32, use_kernel
 
@@ -31,7 +35,7 @@ COUNTER = LaunchCounter("conv2d_ntx")
 FFMA = "conv2d_ntx_launch"
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 # C entry -> the library (csrc/<name>.cu) that exports it
-ENTRIES = {FFMA: "conv2d_ntx", wgmma.ENTRY: wgmma.LIB}
+ENTRIES = {FFMA: "conv2d_ntx", wgmma.ENTRY: wgmma.LIB, tf32.ENTRY: tf32.LIB}
 
 
 def _geometry(x: torch.Tensor, w: torch.Tensor, stride: int, tile_h: int):
@@ -75,13 +79,16 @@ def conv2d_ntx_torch(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
 def entry(dtype: torch.dtype, cin: int, cout: int) -> str:
     """The C entry a CUDA call launches, from x's dtype and the channel counts.
 
-    bf16 with Cin and Cout multiples of 64 -> ``conv2d_ntx_bf16_wgmma``
-    (tensor cores); fp32, and bf16 with other channel counts ->
-    ``conv2d_ntx_launch`` (FFMA). Other dtypes raise ``TypeError``.
+    bf16 with Cin and Cout multiples of 64 -> ``conv2d_ntx_bf16_wgmma``;
+    fp32 with Cin a multiple of 32 and Cout a multiple of 64 ->
+    ``conv2d_ntx_f32_tf32`` (both on the tensor cores); other channel counts
+    -> ``conv2d_ntx_launch`` (FFMA). Other dtypes raise ``TypeError``.
     """
     if dtype not in _TYPES:
         raise TypeError(f"conv2d_ntx kernel takes float32 or bfloat16 operands, got {dtype}")
-    return wgmma.ENTRY if wgmma.takes(dtype, cin, cout) else FFMA
+    if wgmma.takes(dtype, cin, cout):
+        return wgmma.ENTRY
+    return tf32.ENTRY if tf32.takes(dtype, cin, cout) else FFMA
 
 
 def _fn(name: str):
@@ -90,9 +97,9 @@ def _fn(name: str):
         if name == FFMA:  # x, w, y, dtype, N, KH, KW, Cin, Cout, stride, th, OH, OW, 4 strides
             fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
                            + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
-        else:  # x, w, y, N, KH, KW, Cin, Cout, stride, OH, OW, 3 pixel strides
-            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                           + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+        else:  # x, w, y, [ws,] N, KH, KW, Cin, Cout, stride, OH, OW, 3 pixel strides
+            fn.argtypes = ([ctypes.c_void_p] * (4 if name == tf32.ENTRY else 3)
+                           + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -103,8 +110,11 @@ def launch(name: str, x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
 
     :func:`conv2d_ntx` calls it with :func:`entry`'s choice; a caller may
     name the FFMA entry for operands the tensor-core entry takes (to time
-    it). The tensor-core entry checks its operand rules
-    (:func:`repro_torch.kernels.conv2d_ntx_wgmma.x_strides`).
+    it). The tensor-core entries check their operand rules
+    (:func:`repro_torch.kernels.conv2d_ntx_wgmma.x_strides`,
+    :func:`repro_torch.kernels.conv2d_ntx_tf32.x_strides`); the fp32 one
+    also allocates the workspace for w's split, and its first kernel, the
+    split, is counted under ``conv2d_ntx_tf32.SPLIT``.
     """
     oh, ow, th = _geometry(x, w, stride, tile_h)
     if not use_kernel(x, w):
@@ -121,6 +131,15 @@ def launch(name: str, x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
             raise ValueError(f"{name} takes bf16 with Cin and Cout multiples of "
                              f"{wgmma.CHANNELS}, got {x.dtype}, Cin {cin}, Cout {cout}")
         args = (n, kh, kw, cin, cout, stride, oh, ow, *wgmma.x_strides(x, w))
+    elif name == tf32.ENTRY:
+        if not tf32.takes(x.dtype, cin, cout):
+            raise ValueError(f"{name} takes fp32 with Cin a multiple of {tf32.CIN_STEP} and "
+                             f"Cout a multiple of {tf32.COUT_STEP}, got {x.dtype}, Cin {cin}, "
+                             f"Cout {cout}")
+        strides = tf32.x_strides(x)
+        ws = torch.empty(tf32.workspace_numel(kh, kw, cin, cout), dtype=torch.float32,
+                         device=x.device)
+        args = (ws.data_ptr(), n, kh, kw, cin, cout, stride, oh, ow, *strides)
     elif name == FFMA:
         args = (_TYPES[x.dtype], n, kh, kw, cin, cout, stride, th, oh, ow, *x.stride())
     else:
@@ -131,6 +150,8 @@ def launch(name: str, x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     build.check(ENTRIES[name], code, name)
     COUNTER.launches += 1
     COUNTER.entries[name] = COUNTER.entries.get(name, 0) + 1
+    if name == tf32.ENTRY:  # the C entry launched split_w_kernel before the conv
+        COUNTER.entries[tf32.SPLIT] = COUNTER.entries.get(tf32.SPLIT, 0) + 1
     return y
 
 

@@ -95,25 +95,6 @@ struct Dims {
   long long sxn, sxh, sxw;
 };
 
-// ---- cp.async -------------------------------------------------------------
-
-// 16 bytes from global to shared memory; src_bytes 0 zero-fills them
-__device__ __forceinline__ void cp_async_16(uint8_t* dst, const void* src, uint32_t src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// until at most N committed groups of this thread are pending
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 // ---- wgmma ----------------------------------------------------------------
 
 // d[64 x BN] += a[64 x 16] b[16 x BN]: a K-major, b MN-major (transpose

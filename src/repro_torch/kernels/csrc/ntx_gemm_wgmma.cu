@@ -134,22 +134,6 @@ struct Args {
   long long sam, sak, sbk, sbn;
 };
 
-// ---- the fp32 split -------------------------------------------------------
-
-// fp32 bits rounded to nearest even at TF32's 10 mantissa bits; inf and nan kept
-__device__ __forceinline__ uint32_t tf32_rn(uint32_t u) {
-  if ((u & 0x7f800000u) == 0x7f800000u) return u;
-  return (u + 0xfffu + ((u >> 13) & 1u)) & 0xffffe000u;
-}
-
-// x ~ hi + lo in tf32; lo = 0 where hi is not finite
-__device__ __forceinline__ void split(uint32_t x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rn(x);
-  lo = (hi & 0x7f800000u) == 0x7f800000u
-           ? 0u
-           : tf32_rn(__float_as_uint(__fsub_rn(__uint_as_float(x), __uint_as_float(hi))));
-}
-
 // ---- the producer ---------------------------------------------------------
 
 // How a producer warpgroup reads an operand into a stage of R rows. Each
@@ -247,7 +231,7 @@ __device__ __forceinline__ void put_k(uint8_t* dst, int r, int c, int b, const u
     static_assert(N == 4, "fp32 goes as whole chunks");
     uint32_t hi[4], lo[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) split(x[j], hi[j], lo[j]);
+    for (int j = 0; j < 4; ++j) tf32_split(x[j], hi[j], lo[j]);
     *reinterpret_cast<uint4*>(d) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
     *reinterpret_cast<uint4*>(d + R * ROW) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
   } else if constexpr (N == 4) {
@@ -306,16 +290,6 @@ struct Cursor {
 
 // ---- wgmma ----------------------------------------------------------------
 
-#define NTX_D32                                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define NTX_ACC32(d)                                                                          \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-
 // d[64 x 64] = scale_d d + a[64 x SLICE] b[SLICE x 64], a and b K-major in
 // shared memory; thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4
 // + 8 i, columns 8 j + 2 (t % 4) + c in register 4 j + 2 i + c
@@ -326,11 +300,7 @@ template <>
 struct Mma<float> {  // tf32
   static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b,
                                              int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " NTX_D32 ", %32, %33, p, 1, 1;\n}\n"
-        : NTX_ACC32(d)
-        : "l"(a), "l"(b), "r"(scale_d));
+    Tf32Mma<64>::ss(d, a, b, scale_d);
   }
 };
 
@@ -340,15 +310,12 @@ struct Mma<__nv_bfloat16> {
                                              int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " NTX_D32
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_D32
         ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : NTX_ACC32(d)
+        : SM90_ACC32(d)
         : "l"(a), "l"(b), "r"(scale_d));
   }
 };
-
-// K-major tile under the 128-byte swizzle: 8-row groups 1,024 bytes apart
-__device__ __forceinline__ uint64_t kdesc(const uint8_t* p) { return desc(p, 16, 8 * ROW); }
 
 // ---- the join -------------------------------------------------------------
 

@@ -1,8 +1,10 @@
 // Hopper building blocks shared by the tensor-core kernels
-// (flash_attention_wgmma.cu, conv2d_ntx_wgmma.cu, ntx_gemm_wgmma.cu):
-// mbarriers, TMA loads into
-// shared memory, wgmma shared-memory descriptors (128-byte swizzle) and
-// fences, and the host's lookup of the tensor-map encoder.
+// (flash_attention_wgmma.cu, flash_attention_tf32.cu, conv2d_ntx_wgmma.cu,
+// conv2d_ntx_tf32.cu, ntx_gemm_wgmma.cu, ssd_scan_wgmma.cu): mbarriers, TMA
+// loads into shared memory, cp.async, wgmma shared-memory descriptors
+// (128-byte swizzle) and fences; for the three kernels that take fp32 operands as
+// three tf32 products, the split (tf32_rn, tf32_split) and the tf32 wgmma
+// (Tf32Mma); and the host's lookup of the tensor-map encoder.
 
 #pragma once
 
@@ -84,6 +86,29 @@ __device__ __forceinline__ uint64_t desc(const uint8_t* p, uint32_t lbo, uint32_
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
 }
 
+// the descriptor of a K-major tile of 128-byte rows under the 128-byte
+// swizzle: 8-row groups 1,024 bytes apart
+__device__ __forceinline__ uint64_t kdesc(const uint8_t* p) { return desc(p, 16, 8 * 128); }
+
+// ---- cp.async -------------------------------------------------------------
+
+// 16 bytes from global to shared memory; src_bytes 0 zero-fills them
+__device__ __forceinline__ void cp_async_16(uint8_t* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// until at most N committed groups of this thread are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
 // orders this thread's generic-proxy shared-memory writes (plain stores,
 // cp.async) before later async-proxy reads (wgmma)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -110,6 +135,118 @@ __device__ __forceinline__ void fence_regs(float (&r)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+
+// ---- tf32 (fp32 operands as three tf32 products) --------------------------
+
+// fp32 bits rounded to nearest even at TF32's 10 mantissa bits; inf and nan kept
+__device__ __forceinline__ uint32_t tf32_rn(uint32_t u) {
+  if ((u & 0x7f800000u) == 0x7f800000u) return u;
+  return (u + 0xfffu + ((u >> 13) & 1u)) & 0xffffe000u;
+}
+
+// x ~ hi + lo in tf32: hi = tf32_rn(x), lo = tf32_rn(x - hi); lo = 0 where
+// hi is not finite
+__device__ __forceinline__ void tf32_split(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rn(x);
+  lo = (hi & 0x7f800000u) == 0x7f800000u
+           ? 0u
+           : tf32_rn(__float_as_uint(__fsub_rn(__uint_as_float(x), __uint_as_float(hi))));
+}
+
+#define SM90_D32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define SM90_ACC32(d) \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), \
+      "+f"(d[31])
+#define SM90_D48 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, " \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
+#define SM90_ACC48(d) \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), \
+      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+#define SM90_D64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, " \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define SM90_ACC64(d) \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), \
+      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), \
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d[64 x N] = scale_d d + a[64 x 8] b[8 x N], tf32 x tf32 -> fp32 on wgmma;
+// b K-major in shared memory (descriptor); a K-major in shared memory (ss)
+// or the m64k8 A fragment in four registers (rs: thread t holds row
+// 16 (t / 32) + (t % 32) / 4 + 8 (i % 2), column t % 4 + 4 (i / 2) in a[i]).
+// Thread t holds rows 16 (t / 32) + (t % 32) / 4 + 8 i, columns
+// 8 j + 2 (t % 4) + c of d in register 4 j + 2 i + c. tf32 has no transpose
+// bit: both operands are K-major.
+template <int N>
+struct Tf32Mma;
+
+template <>
+struct Tf32Mma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " SM90_D32 ", %32, %33, p, 1, 1;\n}\n"
+        : SM90_ACC32(d)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " SM90_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : SM90_ACC32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Tf32Mma<96> {
+  static __device__ __forceinline__ void ss(float (&d)[48], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 " SM90_D48 ", %48, %49, p, 1, 1;\n}\n"
+        : SM90_ACC48(d)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Tf32Mma<128> {
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " SM90_D64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : SM90_ACC64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
 
 // cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
 // so that the library needs no -lcuda; nullptr where it is missing

@@ -6,16 +6,18 @@ tensors; anything else raises. :func:`entry` picks the kernel from the
 operands' dtype and head dim: bf16 at D 64 or 128 goes to the tensor-core
 kernel ``csrc/flash_attention_wgmma.cu`` (``wgmma`` products, TMA loads, p
 in the ``p v`` product as two bf16 terms; see
-:mod:`repro_torch.kernels.flash_attention_wgmma`), every fp32 call and bf16
-at D 16, 32 or 256 to the FFMA kernel ``csrc/flash_attention.cu``. There is
-no fallback from one to the other. All compute what the TPU kernel's
+:mod:`repro_torch.kernels.flash_attention_wgmma`), fp32 at D 64 or 128 to
+the tensor-core kernel ``csrc/flash_attention_tf32.cu`` (both products as
+3xTF32; see :mod:`repro_torch.kernels.flash_attention_tf32`), and D 16, 32
+or 256 to the FFMA kernel ``csrc/flash_attention.cu``. There is no
+fallback from one to another. All compute what the TPU kernel's
 ``_attn_kernel`` computes: scores
 ``(q . k) * sm_scale`` in fp32, the KV-tail, causal and sliding-window masks
 with ``NEG_INF = -1e30``, the online max, sum and accumulator in fp32, rows
 with no visible key giving 0, and one rounding of ``o`` to q's dtype. ``p``
 enters the ``p v`` product in fp32 in the FFMA kernel and the plain version,
-as in the TPU kernel, and as two bf16 terms (about 16 bits of p) in the
-tensor-core kernel. GQA points q head ``h`` at kv
+as in the TPU kernel, as two bf16 terms (about 16 bits of p) in the bf16
+tensor-core kernel, and as two tf32 terms in the fp32 one. GQA points q head ``h`` at kv
 head ``h // (Hq // Hkv)``; KV is never repeated. The kernel reads q, k and v
 through their strides, so the transposed views of ``attention_block`` need
 no copy.
@@ -32,6 +34,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention_tf32 as tf32
 from repro_torch.kernels import flash_attention_wgmma as wgmma
 from repro_torch.kernels.ops import LaunchCounter, use_kernel
 
@@ -46,6 +49,7 @@ ENTRIES = {
     "flash_attention_f32": "flash_attention",
     "flash_attention_bf16": "flash_attention",
     wgmma.ENTRY: wgmma.LIB,
+    tf32.ENTRY: tf32.LIB,
 }
 
 
@@ -107,10 +111,10 @@ def smem_bytes(d: int) -> int:
 def entry(dtype: torch.dtype, d: int) -> str:
     """The C entry a CUDA call launches, from q's dtype and the head dim.
 
-    bf16 at D 64 or 128 -> ``flash_attention_bf16_wgmma`` (tensor cores);
-    fp32 at any head dim of :data:`HEAD_DIMS` -> ``flash_attention_f32`` and
-    bf16 at D 16, 32 or 256 -> ``flash_attention_bf16`` (FFMA). Other
-    dtypes raise ``TypeError``, other head dims ``ValueError``.
+    At D 64 or 128, bf16 -> ``flash_attention_bf16_wgmma`` and fp32 ->
+    ``flash_attention_f32_tf32`` (tensor cores); at D 16, 32 or 256, fp32
+    -> ``flash_attention_f32`` and bf16 -> ``flash_attention_bf16`` (FFMA).
+    Other dtypes raise ``TypeError``, other head dims ``ValueError``.
     """
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16 q/k/v, got {dtype}")
@@ -118,6 +122,8 @@ def entry(dtype: torch.dtype, d: int) -> str:
         raise ValueError(f"flash_attention kernel: head dim {d} is not one of {HEAD_DIMS}")
     if dtype == torch.bfloat16 and d in wgmma.HEAD_DIMS:
         return wgmma.ENTRY
+    if dtype == torch.float32 and d in tf32.HEAD_DIMS:
+        return tf32.ENTRY
     return "flash_attention_f32" if dtype == torch.float32 else "flash_attention_bf16"
 
 
@@ -135,9 +141,10 @@ def launch(name: str, q, k, v, *, causal: bool = True, window: int | None = None
     """Launch C entry ``name`` on CUDA q, k, v of its dtype; o (B, Hq, Sq, D).
 
     :func:`flash_attention` calls it with :func:`entry`'s choice; a caller
-    may name another entry of the operands' dtype (the FFMA bf16 kernel at
-    D 64, to time it). The tensor-core entry checks TMA's operand rules
-    (:func:`repro_torch.kernels.flash_attention_wgmma.tma_strides`).
+    may name another entry of the operands' dtype (an FFMA kernel at D 64,
+    to time it). The tensor-core entries check their operand rules
+    (:func:`repro_torch.kernels.flash_attention_wgmma.tma_strides`,
+    :func:`repro_torch.kernels.flash_attention_tf32.operand_strides`).
     """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -145,6 +152,11 @@ def launch(name: str, q, k, v, *, causal: bool = True, window: int | None = None
         sm_scale = 1.0 / d**0.5
     if name == wgmma.ENTRY:
         strides = [wgmma.tma_strides(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
+    elif name == tf32.ENTRY:
+        if q.dtype != torch.float32 or d not in tf32.HEAD_DIMS:
+            raise ValueError(f"{name} takes fp32 at head dims {tf32.HEAD_DIMS}, got {q.dtype} "
+                             f"at D {d}")
+        strides = [tf32.operand_strides(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
     else:
         strides = [q.stride(), k.stride(), v.stride()]
     o = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)

@@ -116,10 +116,13 @@ def test_rounded_once_share_passes_two_terms_and_rejects_one(b, hq, hkv, sq, skv
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_entry_follows_dtype_and_head_dim(dtype, d):
     want = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}[dtype]
-    if dtype == torch.bfloat16 and d in (64, 128):
-        want = "flash_attention_bf16_wgmma"
+    if d in (64, 128):
+        want = {torch.float32: "flash_attention_f32_tf32",
+                torch.bfloat16: "flash_attention_bf16_wgmma"}[dtype]
     assert fa.entry(dtype, d) == want
-    assert fa.ENTRIES[want] == ("flash_attention_wgmma" if "wgmma" in want else "flash_attention")
+    lib = {"flash_attention_f32_tf32": "flash_attention_tf32",
+           "flash_attention_bf16_wgmma": "flash_attention_wgmma"}.get(want, "flash_attention")
+    assert fa.ENTRIES[want] == lib
 
 
 def test_entry_refuses_other_dtypes_and_head_dims():

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from repro.kernels.conv2d import conv2d_ntx as jax_conv2d_ntx
-from repro_torch.kernels import conv2d
+from repro_torch.kernels import conv2d, conv2d_ntx_tf32
 from repro_torch.kernels import conv2d_ntx_wgmma as wgmma
 from repro_torch.kernels.ref import conv_rounded_once_share
 
@@ -62,7 +62,7 @@ def _staged(x, w, stride, chunk, *, round_bf16=False):
 
 
 @pytest.mark.parametrize("dtype,cin,cout,want", [
-    (torch.float32, 64, 192, conv2d.FFMA),
+    (torch.float32, 64, 192, conv2d_ntx_tf32.ENTRY),
     (torch.float32, 3, 64, conv2d.FFMA),
     (torch.bfloat16, 64, 192, wgmma.ENTRY),
     (torch.bfloat16, 256, 64, wgmma.ENTRY),
@@ -75,7 +75,9 @@ def _staged(x, w, stride, chunk, *, round_bf16=False):
         "bf16-cin96", "bf16-cout100"])
 def test_entry_follows_dtype_and_channels(dtype, cin, cout, want):
     assert conv2d.entry(dtype, cin, cout) == want
-    assert conv2d.ENTRIES[want] == ("conv2d_ntx_wgmma" if want == wgmma.ENTRY else "conv2d_ntx")
+    lib = {wgmma.ENTRY: wgmma.LIB, conv2d_ntx_tf32.ENTRY: conv2d_ntx_tf32.LIB}.get(want,
+                                                                                "conv2d_ntx")
+    assert conv2d.ENTRIES[want] == lib
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])

@@ -55,7 +55,8 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.kernels.ntx_matmul", "repro_torch.kernels.conv2d",
                 "repro_torch.kernels.flash_attention_wgmma",
                 "repro_torch.kernels.conv2d_ntx_wgmma", "repro_torch.kernels.gemm_wgmma",
-                "repro_torch.kernels.ssd_scan_wgmma"):
+                "repro_torch.kernels.ssd_scan_wgmma", "repro_torch.kernels.flash_attention_tf32",
+                "repro_torch.kernels.conv2d_ntx_tf32"):
         assert mod in res["modules"]
 
 

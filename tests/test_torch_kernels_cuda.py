@@ -18,7 +18,9 @@ import torch
 
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import conv2d, flash_attention, fused, ntx_matmul, ops, ssd_scan, streaming
+from repro_torch.kernels import conv2d_ntx_tf32 as conv_tf32
 from repro_torch.kernels import conv2d_ntx_wgmma as conv_wgmma
+from repro_torch.kernels import flash_attention_tf32 as attn_tf32
 from repro_torch.kernels import flash_attention_wgmma as wgmma
 from repro_torch.kernels import gemm_wgmma as gemm
 from repro_torch.kernels import ssd_scan_wgmma
@@ -559,16 +561,16 @@ def test_wgmma_entry_refuses_operands_tma_cannot_read(cuda_device):
 
 @pytest.mark.cuda
 def test_attention_launches_are_counted_per_entry(cuda_device):
-    """fp32 on the FFMA entry at every head dim; bf16 on the tensor-core entry
-    at D 64 and 128 and on the FFMA bf16 entry at D 32 and 256."""
+    """At D 64 and 128 fp32 on the 3xTF32 entry and bf16 on the bf16 tensor-core
+    entry; at D 32 and 256 on the FFMA entries of each dtype."""
     flash_attention.COUNTER.reset()
-    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 32), (torch.bfloat16, 64),
-                     (torch.bfloat16, 128), (torch.bfloat16, 256)):
+    for dtype, d in ((torch.float32, 32), (torch.float32, 64), (torch.bfloat16, 32),
+                     (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.bfloat16, 256)):
         flash_attention.flash_attention(*_attn_inputs(1, 2, 1, 128, 128, d, 1, cuda_device, dtype))
     torch.cuda.synchronize()
     assert flash_attention.COUNTER.entries == {
-        "flash_attention_f32": 1, "flash_attention_bf16": 2, wgmma.ENTRY: 2}
-    assert flash_attention.COUNTER.launches == 5
+        "flash_attention_f32": 1, attn_tf32.ENTRY: 1, "flash_attention_bf16": 2, wgmma.ENTRY: 2}
+    assert flash_attention.COUNTER.launches == 6
 
 
 _FRESH_QWEN_PREFILL = """
@@ -912,15 +914,158 @@ def test_conv2d_wgmma_entry_refuses_operands_it_cannot_read(cuda_device):
 
 @pytest.mark.cuda
 def test_conv2d_launches_are_counted_per_entry(cuda_device):
-    """fp32 and bf16 Cin 3 / Cout 100 on the FFMA entry, bf16 Cin 64 on the tensor cores;
+    """Cin 3 and Cout 100 on the FFMA entry; Cin 64 on the tensor cores, fp32 on
+    the 3xTF32 entry (its split of w counted apart) and bf16 on the bf16 one;
     the FFMA entry named directly takes bf16 at Cin 64 too."""
     conv2d.COUNTER.reset()
-    for dtype, cin, cout in ((torch.float32, 64, 64), (torch.bfloat16, 3, 64),
-                             (torch.bfloat16, 64, 64), (torch.bfloat16, 64, 100)):
+    for dtype, cin, cout in ((torch.float32, 64, 64), (torch.float32, 3, 64),
+                             (torch.bfloat16, 3, 64), (torch.bfloat16, 64, 64),
+                             (torch.bfloat16, 64, 100)):
         conv2d.conv2d_ntx(*_conv_inputs(1, 10, 10, cin, 3, 3, cout, 1, dtype, cuda_device))
     x, wt = _conv_inputs(1, 10, 10, 64, 3, 3, 64, 1, torch.bfloat16, cuda_device)
     ffma = conv2d.launch(conv2d.FFMA, x, wt)
     torch.cuda.synchronize()
-    assert conv2d.COUNTER.entries == {conv2d.FFMA: 4, conv_wgmma.ENTRY: 1}
-    assert conv2d.COUNTER.launches == 5
+    assert conv2d.COUNTER.entries == {conv2d.FFMA: 4, conv_wgmma.ENTRY: 1, conv_tf32.ENTRY: 1,
+                                      conv_tf32.SPLIT: 1}
+    assert conv2d.COUNTER.launches == 6
     _conv_close(ffma, conv2d.conv2d_ntx_torch(x, wt))
+
+
+def _rms_ratio(got, ref64, plain) -> float:
+    """RMS error against the fp64 result over the plain version's (chip_smoke.py's gate)."""
+    rms = lambda t: float(t.double().square().mean().sqrt())  # noqa: E731
+    return rms(got.double() - ref64) / rms(plain.double() - ref64)
+
+
+# the 3xTF32 attention entry (fp32 at D 64 / 128): GQA, a window, a KV tail of
+# 600 (9 x 64 + 24, in q and in kv), non-causal with Skv != Sq
+TF32_ATTN_CASES = [
+    (1, 8, 2, 512, 512, 64, True, None),
+    (1, 32, 8, 1024, 1024, 128, True, None),
+    (1, 4, 4, 640, 640, 128, True, 200),
+    (1, 2, 2, 600, 600, 64, True, None),
+    (2, 2, 1, 128, 384, 128, False, None),
+]
+TF32_ATTN_IDS = [f"b{c[0]}-h{c[1]}/{c[2]}-s{c[3]}/{c[4]}-d{c[5]}-{'c' if c[6] else 'nc'}-w{c[7]}"
+                 for c in TF32_ATTN_CASES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", TF32_ATTN_CASES, ids=TF32_ATTN_IDS)
+def test_tf32_attention_entry_matches_plain(cuda_device, b, hq, hkv, sq, skv, d, causal, window):
+    """fp32 through the 3xTF32 entry vs plain and attention_ref at the fp32 band,
+    the same bits run to run and on contiguous copies of the strided views,
+    and an RMS error against fp64 at most 1.05 x the plain version's."""
+    q, k, v = _attn_inputs(b, hq, hkv, sq, skv, d, sq + skv + d, cuda_device)
+    qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    kw = {"causal": causal, "window": window}
+    flash_attention.COUNTER.reset()
+    got = flash_attention.flash_attention(qv, kv, vv, **kw)
+    again = flash_attention.flash_attention(qv, kv, vv, **kw)
+    contiguous = flash_attention.flash_attention(q, k, v, **kw)
+    want = flash_attention.flash_attention_torch(q, k, v, **kw)
+    ref64 = attention_ref(q, k, v, compute_dtype=torch.float64, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.COUNTER.entries == {attn_tf32.ENTRY: 3}
+    assert flash_attention.COUNTER.plain_calls == 1
+    assert torch.equal(got, again) and torch.equal(got, contiguous)
+    _attn_close(got, want)
+    _attn_close(got, attention_ref(q, k, v, **kw))
+    assert _rms_ratio(got, ref64, want) <= 1.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", attn_tf32.HEAD_DIMS)
+def test_tf32_attention_rows_with_no_visible_key_are_zero(cuda_device, d):
+    q, k, v = _attn_inputs(1, 4, 2, 256, 64, d, 4, cuda_device)
+    flash_attention.COUNTER.reset()
+    got = flash_attention.flash_attention(q, k, v, causal=True, window=32)
+    torch.cuda.synchronize()
+    assert flash_attention.COUNTER.entries == {attn_tf32.ENTRY: 1}
+    assert not bool(got[:, :, 95:].any())
+    assert bool((got[:, :, :95].abs().amax(dim=-1) > 0).all())
+    _attn_close(got, flash_attention.flash_attention_torch(q, k, v, causal=True, window=32))
+
+
+@pytest.mark.cuda
+def test_tf32_attention_entry_refuses_operands_it_cannot_read(cuda_device):
+    q, k, v = _attn_inputs(1, 2, 2, 128, 128, 64, 0, cuda_device)
+    wide = torch.zeros(1, 2, 128, 66, device=cuda_device)[..., :64]
+    shifted = torch.zeros(2 * 128 * 64 + 1, device=cuda_device)[1:].view(1, 2, 128, 64)
+    flash_attention.COUNTER.reset()
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        flash_attention.flash_attention(q, wide, v)
+    with pytest.raises(ValueError, match="16-byte-aligned base"):
+        flash_attention.flash_attention(q, k, shifted)
+    with pytest.raises(ValueError, match="takes fp32 at head dims"):
+        flash_attention.launch(attn_tf32.ENTRY, q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert flash_attention.COUNTER.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", attn_tf32.HEAD_DIMS)
+def test_tf32_attention_kernel_holds_the_registers_its_split_needs(cuda_device, d):
+    """The built kernel has at least the registers its setmaxnreg split takes
+    (below them a launch is refused, where the block would hang)."""
+    regs, needed = attn_tf32.kernel_registers(d)
+    assert needed == attn_tf32.registers_needed(d)
+    assert needed <= regs <= 255
+
+
+# the 3xTF32 conv entry (fp32, Cin a multiple of 32, Cout of 64): Cin 32 / 64 /
+# 128 / 256 / 512, Cout 64 / 128 / 192, stride 1 and 2, 1 x 1 and 3 x 3; no
+# pixel count is a multiple of 128, so every case has a ragged last tile
+CONV_TF32_CASES = [(1, 10, 10, 64, 3, 3, 64, 1), (2, 11, 9, 64, 3, 3, 192, 1),
+                   (1, 13, 13, 128, 3, 3, 64, 2), (2, 9, 9, 128, 1, 1, 192, 2),
+                   (1, 7, 7, 256, 1, 1, 64, 1), (2, 12, 12, 512, 1, 1, 192, 1),
+                   (1, 15, 17, 32, 3, 3, 128, 1), (2, 13, 13, 256, 3, 3, 192, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,kh,kw,cout,stride", CONV_TF32_CASES)
+def test_tf32_conv2d_entry_matches_plain(cuda_device, n, h, w, cin, kh, kw, cout, stride):
+    """fp32 through the 3xTF32 entry vs plain and the fp64 conv at the fp32
+    band, an RMS error against fp64 at most 1.05 x the plain version's, and
+    the same bits run to run and for every tile_h."""
+    x, wt = _conv_inputs(n, h, w, cin, kh, kw, cout, stride, torch.float32, cuda_device)
+    conv2d.COUNTER.reset()
+    got = conv2d.conv2d_ntx(x, wt, stride=stride)
+    again = conv2d.conv2d_ntx(x, wt, stride=stride)
+    torch.cuda.synchronize()
+    assert conv2d.COUNTER.entries == {conv_tf32.ENTRY: 2, conv_tf32.SPLIT: 2}
+    assert conv2d.COUNTER.plain_calls == 0
+    assert torch.equal(got, again)
+    want = conv2d.conv2d_ntx_torch(x, wt, stride=stride)
+    ref64 = conv2d_ref(x.double(), wt.double(), stride=stride)
+    _conv_close(got, want)
+    _conv_close(got, ref64.float())
+    assert _rms_ratio(got, ref64, want) <= 1.05
+    for tile_h in (1, 3, 100):
+        assert torch.equal(got, conv2d.conv2d_ntx(x, wt, stride=stride, tile_h=tile_h))
+
+
+@pytest.mark.cuda
+def test_tf32_conv2d_entry_reads_padded_views(cuda_device):
+    """A padded plane's interior (pixel strides of the full plane, base moved)
+    gives the bits of its contiguous copy."""
+    x, wt = _conv_inputs(2, 20, 20, 128, 3, 3, 192, 1, torch.float32, cuda_device)
+    inner = x[:, 2:-2, 1:-1]
+    assert not inner.is_contiguous()
+    got = conv2d.conv2d_ntx(inner, wt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, conv2d.conv2d_ntx(inner.contiguous(), wt))
+
+
+@pytest.mark.cuda
+def test_tf32_conv2d_entry_refuses_operands_it_cannot_read(cuda_device):
+    x, wt = _conv_inputs(1, 12, 12, 64, 3, 3, 64, 1, torch.float32, cuda_device)
+    wide = torch.zeros(1, 12, 12, 66, device=cuda_device)[..., :64]
+    nchw = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    conv2d.COUNTER.reset()
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        conv2d.conv2d_ntx(wide, wt)
+    with pytest.raises(ValueError, match="unit channel stride"):
+        conv2d.conv2d_ntx(nchw, wt)
+    with pytest.raises(ValueError, match="takes fp32 with Cin a multiple of 32"):
+        conv2d.launch(conv_tf32.ENTRY, x.bfloat16(), wt.bfloat16())
+    assert conv2d.COUNTER.launches == 0
