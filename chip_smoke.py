@@ -14,8 +14,8 @@ main path, drives the main paths and checks that each went through its kernels:
   ``streaming_matmul`` on the tensor-core GEMM of K-tile partials);
 * ``repro_torch.models.lm.prefill`` of Mamba-2 780M at full width and
   depth (48 layers, d_model 1536, vocab 50,288) on 2 x 2,048 tokens, in
-  bf16 and in fp32 (the SSD-scan kernels, 48 launches per prefill: bf16
-  on the tensor-core kernel, fp32 on the FFMA kernel);
+  bf16 and in fp32 (the SSD-scan kernels, 48 launches per prefill, both on
+  the tensor cores: bf16 on the bf16 kernel, fp32 on the 3xTF32 kernel);
 * ``repro_torch.models.lm.prefill`` of Qwen1.5-0.5B at full width and
   depth (24 attention + MLP layers, d_model 1024, 16 heads of 64, vocab
   151,936) on 2 x 2,048 tokens, in bf16 and in fp32 (the flash-attention
@@ -26,8 +26,9 @@ main path, drives the main paths and checks that each went through its kernels:
   on the four layers' im2col products and on 1024^3 (the same tensor-core
   GEMM: bf16 as it is, fp32 as 3xTF32), then
   ``repro_torch.kernels.conv2d_ntx`` on the four layers in fp32 and in bf16
-  (the direct-convolution kernels: L1-L3 on the tensor-core kernels, bf16
-  as it is and fp32 as 3xTF32, L0's Cin 3 on the FFMA kernel).
+  (the direct-convolution kernels, all on the tensor cores: L1-L3 on the
+  wide kernels, bf16 as it is and fp32 as 3xTF32, L0's Cin 3 stem on the
+  stem kernel in both dtypes).
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` JSON line, and ``{"ok": true, "device": {...}}``.
@@ -226,7 +227,9 @@ def build_kernels():
                       ("conv2d_ntx_wgmma", ("HGMMA", "UTMALDG", "LDGSTS")),
                       ("conv2d_ntx_tf32", ("HGMMA", "UTMALDG", "LDGSTS")),
                       ("ntx_gemm_wgmma", ("HGMMA",)),
-                      ("ssd_scan_wgmma", ("HGMMA", "UTMALDG"))):
+                      ("ssd_scan_wgmma", ("HGMMA", "UTMALDG")),
+                      ("ssd_scan_tf32", ("HGMMA",)),
+                      ("conv2d_ntx_stem", ("HGMMA",))):
         sass = subprocess.run([str(Path(build.nvcc_path()).parent / "cuobjdump"), "-sass",
                                str(paths[name])],
                               capture_output=True, text=True, check=True, timeout=120).stdout
@@ -656,10 +659,13 @@ def ssd_inputs(shape, dtype, device, seed: int, *, dt_min: float = 0.0, dt_max: 
 
 def check_ssd(smoke: Smoke, device, full=(2, 48, 1, 2048, 64, 128), chunk: int = 128):
     """ssd_scan vs its plain chunked version and the sequential ssd_ref; bf16
-    on the tensor-core entry also through the rounded-once gate."""
+    on the tensor-core entry also through the rounded-once gate, fp32 on the
+    3xTF32 entry also through the RMS gate (MM_RMS, against the fp64
+    ssd_ref), whose 1xTF32 and y-via-bf16 controls must be rejected."""
     import torch
 
     from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels import ssd_scan_tf32 as tf32
     from repro_torch.kernels import ssd_scan_wgmma as wgmma
     from repro_torch.kernels.ref import ssd_ref, ssd_rounded_once_share
 
@@ -679,7 +685,7 @@ def check_ssd(smoke: Smoke, device, full=(2, 48, 1, 2048, 64, 128), chunk: int =
         ("dt to 1.0 f32", (1, h, 1, 2 * chunk, p, n), f32, "model", (0.0, 1.0), 4),
         ("dt to 1.0 G 2 bf16", (1, h, 2, 2 * chunk, p, n), bf16, "model", (0.0, 1.0), 5),
     ]
-    worst, outs, shares = 0.0, {}, {}
+    worst, outs, shares, ratios = 0.0, {}, {}, {}
     print(f"{'case':>26} {'max|y|':>9} {'kernel-plain':>12} {'kernel-ref':>11} "
           f"{'plain-ref':>10} {'gate':>8}  entry")
     for label, shape, dtype, layout, (dt_min, dt_max), seed in cases:
@@ -711,6 +717,10 @@ def check_ssd(smoke: Smoke, device, full=(2, 48, 1, 2048, 64, 128), chunk: int =
                   f"{'' if vs_plain else ', printed, not gated'}); plain version "
                   f"{ssd_rounded_once_share(want, x, la, b, c):.4%}")
             assert not vs_plain or share <= ROUNDED_ONCE, f"{label}: rounded-once share {share:.4%}"
+        if ssd_scan.entry(dtype, p, n, chunk) == tf32.ENTRY and vs_plain and \
+                "contiguous" not in label:
+            ratios[label] = ssd_rms_gate(label, got, want, (x, la, b, c), chunk,
+                                         controls=label == "full width f32")
     print("  * printed, not gated")
     for label in ("full width f32", "full width bf16"):
         dtype = f32 if "f32" in label else bf16
@@ -744,19 +754,18 @@ def check_ssd(smoke: Smoke, device, full=(2, 48, 1, 2048, 64, 128), chunk: int =
     ms = time_ms(lambda: ssd_scan.ssd_scan(x, la, b, c, chunk=chunk))
     ffma_ms = time_ms(lambda: ssd_scan.launch(ssd_scan.FFMA[bf16], x, la, b, c, chunk=chunk))
     plain = time_ms(lambda: ssd_scan.ssd_scan_torch(x, la, b, c, chunk=chunk), iters=5)
-    x32, la32, b32, c32 = ssd_inputs(full, f32, device, 0)
-    f32_ms = time_ms(lambda: ssd_scan.ssd_scan(x32, la32, b32, c32, chunk=chunk))
-    del x32, la32, b32, c32
+    f32_row = check_ssd_f32(full, chunk, device)
+    f32_row["f32_rms_ratio"] = ratios
     passes = kernel_ms(lambda: ssd_scan.ssd_scan(x, la, b, c, chunk=chunk))
     dev = sum(passes.values()) if passes else float("nan")
     nbytes, flops = ssd_work(x, la, b, chunk)
     bnd, by = bound_ms(nbytes, flops, "bfloat16")
     print(f"ssd_scan at B {bb}, H {h}, S {s}, P {p}, N {n}, chunk {chunk}, bf16: kernel "
           f"({name}) {ms:.4f} ms by events, {dev:.4f} ms device time in its passes; FFMA bf16 "
-          f"entry {ffma_ms:.4f} ms; plain {plain:.4f} ms; fp32 ({ssd_scan.entry(f32, p, n, chunk)}) "
-          f"{f32_ms:.4f} ms; bound {bnd:.5f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP, "
-          f"{by}; at the fp32 rate the kernel computes in {bound_ms(nbytes, flops)[0]:.5f} ms); "
-          f"no single library call computes SSD")
+          f"entry {ffma_ms:.4f} ms; plain {plain:.4f} ms; fp32 ({f32_row['f32_source']}) "
+          f"{f32_row['f32_ms']:.4f} ms; bound {bnd:.5f} ms ({nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e9:.2f} GFLOP, {by}; at the fp32 rate the kernel computes in "
+          f"{bound_ms(nbytes, flops)[0]:.5f} ms); no single library call computes SSD")
     for key, kms in sorted(passes.items(), key=lambda kv: -kv[1]):
         print(f"    {kms:9.4f} ms  {key[:90]}")
     sources = {e: f"src/repro_torch/kernels/csrc/{lib}.cu"
@@ -777,10 +786,72 @@ def check_ssd(smoke: Smoke, device, full=(2, 48, 1, 2048, 64, 128), chunk: int =
         "bound_by": by,
         "library_ms": None,
         "ffma_bf16_ms": ffma_ms,
-        "f32_ms": f32_ms,
         "rounded_once": shares["full width bf16"],
         "at": f"B {bb}, H {h}, G {g}, S {s:,}, P {p}, N {n}, chunk {chunk}, bf16",
+        **f32_row,
     }
+
+
+def ssd_rms_gate(label, got, want, operands, chunk: int, *, controls: bool) -> float:
+    """fp32 SSD on the 3xTF32 entry: RMS error against the fp64 ssd_ref at most
+    MM_RMS x the plain version's. With ``controls``, the 1xTF32 product
+    (``ssd_scan_tf32.emulate(terms=1)``) and y rounded through bf16 are read
+    through the gate and must be rejected."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan_tf32 as tf32
+    from repro_torch.kernels.ref import ssd_ref
+
+    ref64 = ssd_ref(*operands, compute_dtype=torch.float64)
+    ratio = rms_ratio(got, ref64, want)
+    text = f"{'':>26} RMS vs fp64 {ratio:.4f} x the plain version's (gate {MM_RMS})"
+    if controls:
+        one = rms_ratio(tf32.emulate(*operands, chunk=chunk, terms=1), ref64, want)
+        via = rms_ratio(got.bfloat16(), ref64, want)
+        text += f"; controls 1xTF32 {one:.1f}x, y via bf16 {via:.1f}x (both must be rejected)"
+        assert one > MM_RMS and via > MM_RMS, f"{label}: the RMS gate let a control through"
+    print(text)
+    assert ratio <= MM_RMS, f"{label}: RMS vs fp64 {ratio:.4f} x the plain version's"
+    return ratio
+
+
+def check_ssd_f32(full, chunk: int, device) -> dict:
+    """fp32 at full width: the 3xTF32 entry timed beside the FFMA fp32 entry
+    (held against the plain version at the band first) and the bound, per-pass
+    device time by torch.profiler."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan
+
+    f32 = torch.float32
+    bb, h, g, s, p, n = full
+    x, la, b, c = ssd_inputs(full, f32, device, 0)
+    name = ssd_scan.entry(f32, p, n, chunk)
+    want = ssd_scan.ssd_scan_torch(x, la, b, c, chunk=chunk)
+    ffma = ssd_scan.launch(ssd_scan.FFMA[f32], x, la, b, c, chunk=chunk)
+    e_ffma = max_abs(ffma, want) / float(want.abs().max())
+    del ffma
+    assert e_ffma <= SSD_TOL["float32"], f"FFMA fp32 entry vs plain {e_ffma:.2e}"
+    ms = time_ms(lambda: ssd_scan.ssd_scan(x, la, b, c, chunk=chunk))
+    ffma_ms = time_ms(lambda: ssd_scan.launch(ssd_scan.FFMA[f32], x, la, b, c, chunk=chunk),
+                      iters=10)
+    plain = time_ms(lambda: ssd_scan.ssd_scan_torch(x, la, b, c, chunk=chunk), iters=5)
+    passes = kernel_ms(lambda: ssd_scan.ssd_scan(x, la, b, c, chunk=chunk))
+    dev = sum(passes.values()) if passes else float("nan")
+    nbytes, flops = ssd_work(x, la, b, chunk)
+    bnd, by = bound_ms(nbytes, 3 * flops, "tf32")
+    print(f"ssd_scan at B {bb}, H {h}, S {s}, P {p}, N {n}, chunk {chunk}, fp32: kernel ({name}) "
+          f"{ms:.4f} ms by events, {dev:.4f} ms device time in its passes; FFMA fp32 entry "
+          f"{ffma_ms:.4f} ms (vs plain {e_ffma:.2e} of max|y|); plain {plain:.4f} ms; bound "
+          f"{bnd:.5f} ms ({nbytes / 1e6:.2f} MB, 3 x {flops / 1e9:.2f} GFLOP at the tf32 rate, "
+          f"{by}; at the fp32-FFMA rate {bound_ms(nbytes, flops)[0]:.5f} ms); "
+          f"{ptxas_summary(ssd_scan.ENTRIES[name])}")
+    for key, kms in sorted(passes.items(), key=lambda kv: -kv[1]):
+        print(f"    {kms:9.4f} ms  {key[:90]}")
+    return {"f32_source": f"src/repro_torch/kernels/csrc/{ssd_scan.ENTRIES[name]}.cu",
+            "f32_ms": ms, "f32_device_ms": None if math.isnan(dev) else dev,
+            "f32_ffma_ms": ffma_ms, "f32_plain_ms": plain, "f32_bound_ms": bnd,
+            "f32_bound_by": by}
 
 
 @contextlib.contextmanager
@@ -945,7 +1016,8 @@ def profile_prefill(params, tokens, cfg, ctx, warm_wall_ms: float):
     """Device time of one warm prefill by kernel and by kind, from torch.profiler.
 
     Kinds: the port's kernels (``attn_kernel``, ``attn_wgmma_kernel``,
-    ``ssd_kernel``, the ``ssd_wgmma_*`` passes), matrix
+    ``ssd_kernel``, the ``ssd_wgmma_*`` and ``ssd_tf32_*`` passes and their
+    shared ``ssd_chunk_scan``), matrix
     products (cuBLAS), and everything else (element-wise passes, reductions,
     copies). The device's idle share is 1 - (sum of kernel times) / the
     warm wall measured without the profiler.
@@ -969,7 +1041,8 @@ def profile_prefill(params, tokens, cfg, ctx, warm_wall_ms: float):
         return
 
     def kind(name):
-        if any(t in name for t in ("attn_kernel", "attn_wgmma_kernel", "ssd_kernel", "ssd_wgmma")):
+        if any(t in name for t in ("attn_kernel", "attn_wgmma_kernel", "ssd_kernel", "ssd_wgmma",
+                                   "ssd_tf32", "ssd_chunk_scan")):
             return "port kernel"
         if any(t in name.lower() for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
             return "matmul (cuBLAS)"
@@ -989,11 +1062,13 @@ def profile_prefill(params, tokens, cfg, ctx, warm_wall_ms: float):
 
 def _ssd_launch_gate(calls, dtype):
     """Each SSD launch vs the plain SSD at SSD_TOL; bf16 scores must fail in
-    fp32. Launches of the tensor-core entry also read layer 0 through the
-    rounded-once gate."""
+    fp32. Launches of the bf16 tensor-core entry also read layer 0 through
+    the rounded-once gate, of the fp32 one through the RMS gate (with its
+    1xTF32 control)."""
     import torch
 
     from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels import ssd_scan_tf32 as tf32
     from repro_torch.kernels import ssd_scan_wgmma as wgmma
     from repro_torch.kernels.ref import ssd_rounded_once_share
 
@@ -1013,15 +1088,18 @@ def _ssd_launch_gate(calls, dtype):
                       f"{ROUNDED_ONCE:.0%}); plain version "
                       f"{ssd_rounded_once_share(want, *args):.4%}")
                 assert share <= ROUNDED_ONCE, f"layer 0 SSD rounded-once share {share:.4%}"
+            if ssd_scan.entry(x.dtype, x.shape[3], b.shape[3], q) == tf32.ENTRY:
+                print(f"  {dtype}: layer 0's SSD launch through the RMS gate:")
+                ssd_rms_gate("layer 0", y, want, args, q, controls=True)
     worst = max(range(len(rel)), key=rel.__getitem__)
     print(f"  {dtype}: SSD kernel vs plain on each layer's own operands, of max|y|: worst "
           f"{rel[worst]:.2e} (layer {worst}), median {sorted(rel)[len(rel) // 2]:.2e} "
           f"(gate {tol:.0e}); control scores in bf16 on layer 0: {ctl:.2e}, "
           f"{'rejected' if ctl > tol else 'passes'}")
     assert rel[worst] <= tol, f"{dtype}: layer {worst} SSD kernel vs plain {rel[worst]:.2e}"
-    # fp32 runs the FFMA kernel, every operand in fp32: its band must see one
-    # bf16 rounding of the scores. The bf16 band is one bf16 ulp of y wide and
-    # cannot; there the rounded-once gate above reads the tensor-core kernel.
+    # the fp32 band must see one bf16 rounding of the scores. The bf16 band is
+    # one bf16 ulp of y wide and cannot; there the rounded-once gate above
+    # reads the tensor-core kernel.
     assert dtype != torch.float32 or ctl > tol, "the fp32 gate let bf16 scores through"
 
 
@@ -1061,8 +1139,9 @@ def prefill_path(smoke: Smoke, device, cfg=None, batch: int = PREFILL_BATCH,
     1.1x in the mean). Lower-precision controls are read through the
     gates: the fp32 per-layer gate must reject scores rounded to bf16, the
     ratio gate y rounded to fp8 e5m2 (it is coarse: bf16 scores pass it).
-    Every bf16 launch is of the tensor-core entry (layer 0's also through
-    the rounded-once gate), every fp32 launch of ``ssd_scan_f32``. In bf16
+    Every bf16 launch is of the bf16 tensor-core entry (layer 0's also
+    through the rounded-once gate), every fp32 launch of the 3xTF32 entry
+    ``ssd_scan_f32_tf32`` (layer 0's also through the RMS gate). In bf16
     the kernel and the plain version differ in about one element of y in
     five hundred by one ulp (two-term operands, fp32 sums in another
     order); 48 layers carry those flips to several percent of
@@ -1092,6 +1171,9 @@ def prefill_path(smoke: Smoke, device, cfg=None, batch: int = PREFILL_BATCH,
     q = min(ctx.ssd_chunk, seq)
     entry16, entry32 = (ssd_scan.entry(dt, cfg.ssm_headdim, cfg.ssm_state, q)
                         for dt in (cfg.dtype, torch.float32))
+    if (cfg.ssm_headdim, cfg.ssm_state, q) == (64, 128, 128):  # the 780M's: tensor cores
+        assert (entry16, entry32) == ("ssd_scan_bf16_wgmma", "ssd_scan_f32_tf32"), \
+            (entry16, entry32)
     k16, p16, launches, wall = _prefill_runs(params, tokens, cfg, ctx, ssd_scan, n_ssd, warm,
                                              _ssd_launch_gate, entry=entry16)
     profile_prefill(params, tokens, cfg, ctx, wall)
@@ -1864,30 +1946,37 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
     (inputs padded with F.pad; fp32 L0's a strided NHWC view of NCHW data),
     launch counts per C entry set to 0 just before and read just after: bf16
     with Cin and Cout multiples of 64 on the bf16 tensor-core entry, fp32
-    with Cin a multiple of 32 and Cout of 64 on the 3xTF32 one, the rest
-    (L0) on the FFMA entry. Gates: kernel vs the plain version and vs the
-    fp64 im2col conv at CONV_F32 / CONV_BF16, the same bits on a second run
-    and at another tile_h, and fp32 L0 on its strided input equal to L0 on a
-    contiguous copy; bf16 also the rounded-once gate, fp32 on the 3xTF32
-    entry also the RMS gate (MM_RMS). Controls: the fp32 kernel's output
-    rounded through bf16, read through the fp32 band and the RMS gate, the
-    1xTF32 product (hi.hi alone), read through the RMS gate (the band's
-    reading printed), and the conv that rounds to bf16 per stage, read
-    through the rounded-once gate, must be rejected. Times: CUDA events over
-    20 calls (ms) and the kernels' device time under the profiler (dev ms);
-    at L1 the FFMA entry, called directly, is timed beside each tensor-core
-    kernel. Bounds: fp32 on the 3xTF32 entry at three tf32 products each
-    (the fp32-FFMA rate's figure printed beside), bf16 at the bf16 rate.
+    with Cin a multiple of 32 and Cout of 64 on the 3xTF32 one, L0's Cin 3
+    in both dtypes on the stem entry, none on the FFMA entry. Gates: kernel
+    vs the plain version and vs the fp64 im2col conv at CONV_F32 /
+    CONV_BF16, the same bits on a second run and at another tile_h, and fp32
+    L0 on its strided input equal to L0 on a contiguous copy; bf16 also the
+    rounded-once gate, fp32 on the 3xTF32 and stem entries also the RMS gate
+    (MM_RMS). Controls: the fp32 kernel's output rounded through bf16, read
+    through the fp32 band and the RMS gate, the 1xTF32 product (hi.hi
+    alone), read through the RMS gate (the band's reading printed), and the
+    conv that rounds to bf16 per stage, read through the rounded-once gate,
+    must be rejected. Times: CUDA events over 20 calls (ms) and the kernels'
+    device time under the profiler (dev ms); at L1 and at L0 the FFMA entry,
+    called directly, is timed beside each tensor-core kernel. Bounds: fp32
+    on the tensor cores at three tf32 products each (the fp32-FFMA rate's
+    figure printed beside), bf16 at the bf16 rate.
     """
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import conv2d
+    from repro_torch.kernels import conv2d_ntx_stem as stem
     from repro_torch.kernels import conv2d_ntx_tf32 as tf32
     from repro_torch.kernels import conv2d_ntx_wgmma as wgmma
     from repro_torch.kernels.ref import conv2d_ref, conv_rounded_once_share
 
     cases = conv_cases(layers)
+    # the C entry of each case, and the module whose emulate(terms=1) is its
+    # 1xTF32 control where it runs fp32 on the tensor cores
+    entry_of = {label: conv2d.entry(dt, cin, cout, k, k, s)
+                for label, (_, _, _, cin, k, s, _, cout), dt in cases}
+    tf32_mods = {tf32.ENTRY: tf32, stem.ENTRY: stem}
     inputs = {}
     for i, (label, (name, h, w, cin, k, s, p, cout), dt) in enumerate(cases):
         if name == "L0" and dt == torch.float32:  # NCHW data, padded, viewed as NHWC
@@ -1897,8 +1986,8 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
             x = F.pad(seeded((batch, h, w, cin), dt, device, 10 + i), (0, 0, p, p, p, p))
         inputs[label] = (x, seeded((k, k, cin, cout), dt, device, 20 + i, 0.2), s)
     want_entries: dict[str, int] = {}
-    for _, (_, _, _, cin, *_, cout), dt in cases:
-        e = conv2d.entry(dt, cin, cout)
+    for label, *_ in cases:
+        e = entry_of[label]
         want_entries[e] = want_entries.get(e, 0) + 1
         if e == tf32.ENTRY:  # each call's first kernel splits w
             want_entries[tf32.SPLIT] = want_entries.get(tf32.SPLIT, 0) + 1
@@ -1914,6 +2003,11 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
         wgmma.takes(dt, layer[3], layer[7]) for _, layer, dt in cases) > 0, entries
     assert entries.get(tf32.ENTRY, 0) == sum(
         tf32.takes(dt, layer[3], layer[7]) for _, layer, dt in cases) > 0, entries
+    n_stem = sum(stem.takes(dt, layer[4], layer[4], layer[3], layer[7], layer[5])
+                 for _, layer, dt in cases)
+    assert entries.get(stem.ENTRY, 0) == n_stem, entries
+    if n_stem:  # every layer on a tensor-core entry: none left on FFMA
+        assert conv2d.FFMA not in entries, entries
 
     print(f"{'case':>12} {'out (N,OH,OW,C)':>20} {'vs plain':>8} {'vs f64':>7} {'control':>8} "
           f"{'ms':>8} {'dev ms':>8} {'plain':>8} {'conv2d':>8} {'dev':>8} {'bound':>8}  "
@@ -1927,11 +2021,11 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
         ref64 = conv2d_ref(x.double(), wt.double(), stride=s)
         u_plain, u_ref = conv_gate(y, want, dt), conv_gate(y, ref64, dt)
         rms_row = {}
-        if conv2d.entry(dt, cin, cout) == tf32.ENTRY:
-            one = tf32.emulate(x, wt, stride=s, terms=1)
+        if dt == torch.float32 and entry_of[label] in tf32_mods:
+            one = tf32_mods[entry_of[label]].emulate(x, wt, stride=s, terms=1)
             rms_row = {"kernel": rms_ratio(y, ref64, want), "1xTF32": rms_ratio(one, ref64, want),
                        "output via bf16": rms_ratio(y.bfloat16(), ref64, want)}
-            print(f"{'':>12} {label} on {tf32.ENTRY}: RMS vs fp64 {rms_row['kernel']:.4f} x the "
+            print(f"{'':>12} {label} on {entry_of[label]}: RMS vs fp64 {rms_row['kernel']:.4f} x the "
                   f"plain version's (gate {MM_RMS}); controls: 1xTF32 {rms_row['1xTF32']:.1f}x, output "
                   f"via bf16 {rms_row['output via bf16']:.1f}x (both must be rejected); the band "
                   f"reads 1xTF32 at {conv_gate(one, want, dt):.2f}")
@@ -1956,7 +2050,7 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
             ctl = conv_rounded_once_share(control, x, wt, s)
             band = conv_gate(control, want, dt)
             ctl_text = f"{ctl:.2%}"
-            print(f"{'':>12} {conv2d.entry(dt, cin, cout)}: rounded-once share {share:.4%} "
+            print(f"{'':>12} {entry_of[label]}: rounded-once share {share:.4%} "
                   f"(gate {ROUNDED_ONCE:.0%}), plain version {plain_share:.4%}; control "
                   f"(bf16 per stage) {ctl:.4%}, "
                   f"{'rejected' if ctl > ROUNDED_ONCE else 'passes'}; the 1e-2 band reads "
@@ -1994,10 +2088,10 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
             assert share <= ROUNDED_ONCE, f"{label}: rounded-once share {share:.4%}"
             assert ctl > ROUNDED_ONCE, f"{label}: the rounded-once gate let the control through"
     print("  run == run, tile_h 8 == tile_h 3 and strided L0 == contiguous L0: identical "
-          "bits; controls rejected (fp32: output rounded to bf16, and on the 3xTF32 entry "
-          "1xTF32; bf16: sums rounded to bf16 per stage); 'conv2d' is F.conv2d on the NHWC "
-          "tensors as channels-last NCHW, cuDNN TF32 off; 'dev' columns: device time under "
-          "torch.profiler; 'bound' for fp32 on the 3xTF32 entry at 495 TFLOP/s")
+          "bits; controls rejected (fp32: output rounded to bf16, and on the 3xTF32 and stem "
+          "entries 1xTF32; bf16: sums rounded to bf16 per stage); 'conv2d' is F.conv2d on the "
+          "NHWC tensors as channels-last NCHW, cuDNN TF32 off; 'dev' columns: device time "
+          "under torch.profiler; 'bound' for fp32 on the tensor cores at 495 TFLOP/s")
     l1_32 = next((lab for lab, layer, dt in cases if dt == torch.float32
                   and tf32.takes(dt, layer[3], layer[7])), None)
     f32_row = {}
@@ -2060,10 +2154,41 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
             "bf16_rounded_once": r["rounded_once"],
             "bf16_at": f"GoogLeNet {l1.split()[0]} at batch {batch}, bf16",
         }
+    stem_row = {}
+    for label, (name, *_), dt in cases:  # the FFMA entry beside the stem kernel
+        if entry_of[label] != stem.ENTRY:
+            continue
+        x, wt, s = inputs[label]
+        ffma = conv2d.launch(conv2d.FFMA, x, wt, stride=s)
+        u_ffma = conv_gate(ffma, conv2d.conv2d_ntx_torch(x, wt, stride=s), dt)
+        del ffma
+        assert u_ffma <= 1, f"{label}: FFMA entry vs plain {u_ffma:.3f} of the gate"
+        ffma_ms = time_ms(lambda: conv2d.launch(conv2d.FFMA, x, wt, stride=s))
+        r, key = rows[label], f"stem_{dtype_name(dt)}"
+        print(f"  {label}: {stem.ENTRY} {r['ms']:.4f} ms (device {r['device_ms']:.4f}), FFMA "
+              f"entry {ffma_ms:.4f} ms (vs plain {u_ffma:.3f} of the gate), cuDNN "
+              f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}"
+              f"{'; at the fp32-FFMA rate %.5f' % r['bound_ffma_ms'] if 'rms_ratio' in r else ''})"
+              f"; {ptxas_summary(stem.LIB)}")
+        stem_row.update({
+            f"{key}_ms": r["ms"],
+            f"{key}_device_ms": None if math.isnan(r["device_ms"]) else r["device_ms"],
+            f"{key}_ffma_ms": ffma_ms,
+            f"{key}_plain_ms": r["plain_ms"],
+            f"{key}_library_ms": r["library_ms"],
+            f"{key}_library_device_ms": r["library_device_ms"],
+            f"{key}_bound_ms": r["bound_ms"],
+            f"{key}_bound_by": r["bound_by"],
+            **({f"{key}_rms_ratio": r["rms_ratio"]} if "rms_ratio" in r else
+               {f"{key}_rounded_once": r.get("rounded_once")}),
+        })
+    if stem_row:
+        stem_row["stem_source"] = "src/repro_torch/kernels/csrc/conv2d_ntx_stem.cu"
+        stem_row["stem_at"] = f"GoogLeNet L0 at batch {batch}"
     lab32 = "L1 float32" if "L1 float32" in rows else cases[0][0]
     fp32 = rows[lab32]
-    _, layer32, dt32 = next(c for c in cases if c[0] == lab32)
-    lib32 = conv2d.ENTRIES[conv2d.entry(dt32, layer32[3], layer32[7])]
+    lib32 = conv2d.ENTRIES[entry_of[lab32]]
     smoke.kernels["conv2d_ntx"] = {
         "name": "conv2d_ntx",
         "route": "cuda",
@@ -2076,6 +2201,7 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
         "at": "GoogLeNet L1 at batch 32, fp32",
         **f32_row,
         **bf16_row,
+        **stem_row,
     }
 
 

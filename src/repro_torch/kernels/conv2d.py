@@ -13,10 +13,13 @@ with Cin and Cout multiples of 64 goes to the tensor-core kernel
 pixels per CTA; see :mod:`repro_torch.kernels.conv2d_ntx_wgmma`), fp32
 with Cin a multiple of 32 and Cout a multiple of 64 to the tensor-core
 kernel ``csrc/conv2d_ntx_tf32.cu`` (the same implicit GEMM in 3xTF32; see
-:mod:`repro_torch.kernels.conv2d_ntx_tf32`), and other channel counts
-(GoogLeNet's Cin 3 stem) to the FFMA kernel ``csrc/conv2d_ntx.cu`` (one CTA
-per image, row tile and 64-channel Cout tile). There is no fallback from
-one to another. All read x through its strides and sum each output in one
+:mod:`repro_torch.kernels.conv2d_ntx_tf32`), other channel counts with K =
+kh*kw*Cin up to 256 and Cout a multiple of 64 (GoogLeNet's Cin 3 stem), in
+either dtype, to the tensor-core stem kernel ``csrc/conv2d_ntx_stem.cu``
+(the pixel tile's slab of x in shared memory, A fragments from it in
+registers; see :mod:`repro_torch.kernels.conv2d_ntx_stem`), and the rest to
+the FFMA kernel ``csrc/conv2d_ntx.cu`` (one CTA per image, row tile and
+64-channel Cout tile). There is no fallback from one to another. All read x through its strides and sum each output in one
 order that does not depend on ``tile_h``.
 """
 
@@ -27,6 +30,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import conv2d_ntx_stem as stem
 from repro_torch.kernels import conv2d_ntx_tf32 as tf32
 from repro_torch.kernels import conv2d_ntx_wgmma as wgmma
 from repro_torch.kernels.ops import LaunchCounter, strict_fp32, use_kernel
@@ -35,7 +39,8 @@ COUNTER = LaunchCounter("conv2d_ntx")
 FFMA = "conv2d_ntx_launch"
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 # C entry -> the library (csrc/<name>.cu) that exports it
-ENTRIES = {FFMA: "conv2d_ntx", wgmma.ENTRY: wgmma.LIB, tf32.ENTRY: tf32.LIB}
+ENTRIES = {FFMA: "conv2d_ntx", wgmma.ENTRY: wgmma.LIB, tf32.ENTRY: tf32.LIB,
+           stem.ENTRY: stem.LIB}
 
 
 def _geometry(x: torch.Tensor, w: torch.Tensor, stride: int, tile_h: int):
@@ -76,19 +81,25 @@ def conv2d_ntx_torch(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     return out
 
 
-def entry(dtype: torch.dtype, cin: int, cout: int) -> str:
-    """The C entry a CUDA call launches, from x's dtype and the channel counts.
+def entry(dtype: torch.dtype, cin: int, cout: int, kh: int = 1, kw: int = 1,
+          stride: int = 1) -> str:
+    """The C entry a CUDA call launches, from x's dtype, the channel counts
+    and the taps (kh x kw at ``stride``).
 
     bf16 with Cin and Cout multiples of 64 -> ``conv2d_ntx_bf16_wgmma``;
     fp32 with Cin a multiple of 32 and Cout a multiple of 64 ->
-    ``conv2d_ntx_f32_tf32`` (both on the tensor cores); other channel counts
-    -> ``conv2d_ntx_launch`` (FFMA). Other dtypes raise ``TypeError``.
+    ``conv2d_ntx_f32_tf32``; other channel counts with kh*kw*Cin up to 256
+    and Cout a multiple of 64, either dtype -> ``conv2d_ntx_stem`` (all three
+    on the tensor cores); the rest -> ``conv2d_ntx_launch`` (FFMA). Other
+    dtypes raise ``TypeError``.
     """
     if dtype not in _TYPES:
         raise TypeError(f"conv2d_ntx kernel takes float32 or bfloat16 operands, got {dtype}")
     if wgmma.takes(dtype, cin, cout):
         return wgmma.ENTRY
-    return tf32.ENTRY if tf32.takes(dtype, cin, cout) else FFMA
+    if tf32.takes(dtype, cin, cout):
+        return tf32.ENTRY
+    return stem.ENTRY if stem.takes(dtype, kh, kw, cin, cout, stride) else FFMA
 
 
 def _fn(name: str):
@@ -96,6 +107,9 @@ def _fn(name: str):
     if fn.argtypes is None:
         if name == FFMA:  # x, w, y, dtype, N, KH, KW, Cin, Cout, stride, th, OH, OW, 4 strides
             fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+                           + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+        elif name == stem.ENTRY:  # x, w, y, dtype, N, H, W, KH, KW, Cin, Cout, stride, OH, OW,
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 11  # 4 strides
                            + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
         else:  # x, w, y, [ws,] N, KH, KW, Cin, Cout, stride, OH, OW, 3 pixel strides
             fn.argtypes = ([ctypes.c_void_p] * (4 if name == tf32.ENTRY else 3)
@@ -109,8 +123,9 @@ def launch(name: str, x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     """Launch C entry ``name`` on CUDA x, w of one dtype; y (N, OH, OW, Cout).
 
     :func:`conv2d_ntx` calls it with :func:`entry`'s choice; a caller may
-    name the FFMA entry for operands the tensor-core entry takes (to time
-    it). The tensor-core entries check their operand rules
+    name the FFMA entry for operands a tensor-core entry takes (to time
+    it). The stem entry checks :func:`repro_torch.kernels.conv2d_ntx_stem.takes`
+    (it reads x through any strides); the wide tensor-core entries check their operand rules
     (:func:`repro_torch.kernels.conv2d_ntx_wgmma.x_strides`,
     :func:`repro_torch.kernels.conv2d_ntx_tf32.x_strides`); the fp32 one
     also allocates the workspace for w's split, and its first kernel, the
@@ -140,6 +155,14 @@ def launch(name: str, x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         ws = torch.empty(tf32.workspace_numel(kh, kw, cin, cout), dtype=torch.float32,
                          device=x.device)
         args = (ws.data_ptr(), n, kh, kw, cin, cout, stride, oh, ow, *strides)
+    elif name == stem.ENTRY:
+        if not stem.takes(x.dtype, kh, kw, cin, cout, stride):
+            raise ValueError(f"{name} takes fp32 or bf16 with channel counts the wide kernels "
+                             f"do not take, kh*kw*Cin up to {stem.MAX_K}, Cout a multiple of "
+                             f"{stem.COUT_STEP} and a slab that fits one block, got {x.dtype}, "
+                             f"{kh} x {kw} x {cin} -> {cout}, stride {stride}")
+        args = (_TYPES[x.dtype], n, x.shape[1], x.shape[2], kh, kw, cin, cout, stride, oh, ow,
+                *x.stride())
     elif name == FFMA:
         args = (_TYPES[x.dtype], n, kh, kw, cin, cout, stride, th, oh, ow, *x.stride())
     else:
@@ -166,4 +189,5 @@ def conv2d_ntx(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     if not use_kernel(x, w):
         return conv2d_ntx_torch(x, w, stride=stride, tile_h=tile_h)
     _geometry(x, w, stride, tile_h)
-    return launch(entry(x.dtype, x.shape[3], w.shape[3]), x, w, stride=stride, tile_h=tile_h)
+    kh, kw, cin, cout = w.shape
+    return launch(entry(x.dtype, cin, cout, kh, kw, stride), x, w, stride=stride, tile_h=tile_h)

@@ -32,7 +32,8 @@
 //      group and not per head, only its 64 x 64 tiles on or below the
 //      diagonal.
 //   3. scan, over (b, h, 4 state elements): h_in[c] = h; h = exp(total_c) h
-//      + S_c in fp32, chunk after chunk, written over S_c in place.
+//      + S_c in fp32, chunk after chunk, written over S_c in place
+//      (ssd_chunk_scan in ssd_scan_common.cuh, shared with the fp32 kernel).
 //   4. out, one CTA per (chunk, h, b) and 64 columns of P, Q / 64 consumer
 //      warpgroups of 64 rows: y = exp(cum_i) (C h_in^T) + (CB o decay) X,
 //      decay_ij = exp(cum_i - cum_j) evaluated only for j <= i: above the
@@ -63,7 +64,7 @@
 // other strides multiples of 16 bytes), allocates the workspace and raises
 // on what the kernel does not take.
 
-#include "sm90.cuh"
+#include "ssd_scan_common.cuh"
 
 namespace {
 
@@ -71,13 +72,6 @@ constexpr int BOX = 64;          // columns of a TMA box, rows and columns of a 
 constexpr int ROW_BYTES = 128;   // one swizzled row: 64 bf16
 constexpr int SLICE = 16;        // K of one wgmma
 constexpr int STATE_THREADS = 256;  // two warpgroups deal out the N tiles of a state
-constexpr int SCAN_THREADS = 256;
-constexpr int SCAN_AHEAD = 8;  // chunks whose state loads a scan thread issues at once
-
-struct Dims {
-  int B, H, G, S, P, N, Q, NC;  // NC = S / Q chunks
-  long long sla[3];             // element strides of la
-};
 
 // ---- wgmma m64n64k16, bf16 x bf16 -> fp32 ---------------------------------
 // thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 + 8 i,
@@ -144,18 +138,6 @@ __device__ __forceinline__ void init_barrier(uint64_t* bar) {
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-}
-
-// the accumulator tile's columns as fp32 pairs into a row-major matrix with row stride ld
-__device__ __forceinline__ void store_tile(float* out, long long ld, const float (&acc)[32],
-                                           int lt) {
-  const int r0 = 16 * (lt / 32) + (lt % 32) / 4, c0 = 2 * (lt % 4);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<float2*>(out + (r0 + 8 * i) * ld + 8 * j + c0) =
-          make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
 }
 
 // ---- pass 1: cum and the chunk states ---------------------------------------
@@ -291,44 +273,6 @@ ssd_wgmma_cb(const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUt
       fence_regs(acc);
     }
     store_tile(out + wg * BOX * Q + jt * BOX, Q, acc, lt);
-  }
-}
-
-// ---- pass 3: the states across chunks ----------------------------------------
-
-// grid (P N / 4 / SCAN_THREADS, H, B): each thread carries 4 state elements
-// through the chunks in order, writing the state each chunk starts from
-// over that chunk's own state. The chunks come in groups of SCAN_AHEAD whose
-// loads are all issued before the group's first store, so that a thread
-// keeps that many loads in flight.
-__global__ void __launch_bounds__(SCAN_THREADS)
-ssd_wgmma_scan(const float* __restrict__ cum_ws, float* __restrict__ st_ws, Dims d) {
-  const int per = d.P * d.N / 4;
-  const int e = blockIdx.x * SCAN_THREADS + threadIdx.x;
-  if (e >= per) return;
-  const long long bh = static_cast<long long>(blockIdx.z) * d.H + blockIdx.y;
-  float4* s = reinterpret_cast<float4*>(st_ws + bh * d.NC * d.P * d.N) + e;
-  const float* total = cum_ws + bh * d.S + d.Q - 1;
-  float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int c0 = 0; c0 < d.NC; c0 += SCAN_AHEAD) {
-    const int m = min(SCAN_AHEAD, d.NC - c0);
-    float4 v[SCAN_AHEAD];
-    float dec[SCAN_AHEAD];
-#pragma unroll
-    for (int k = 0; k < SCAN_AHEAD; ++k)
-      if (k < m) {
-        v[k] = s[static_cast<long long>(c0 + k) * per];
-        dec[k] = expf(total[static_cast<long long>(c0 + k) * d.Q]);
-      }
-#pragma unroll
-    for (int k = 0; k < SCAN_AHEAD; ++k)
-      if (k < m) {
-        s[static_cast<long long>(c0 + k) * per] = h;
-        h.x = __fadd_rn(__fmul_rn(dec[k], h.x), v[k].x);
-        h.y = __fadd_rn(__fmul_rn(dec[k], h.y), v[k].y);
-        h.z = __fadd_rn(__fmul_rn(dec[k], h.z), v[k].z);
-        h.w = __fadd_rn(__fmul_rn(dec[k], h.w), v[k].w);
-      }
   }
 }
 
@@ -512,7 +456,7 @@ int launch_q(const void* x, const void* la, const void* b, const void* c, void* 
       tx, tb, static_cast<const float*>(la), cum_ws, st_ws, d);
   ssd_wgmma_cb<Q><<<dim3(d.NC, d.G, d.B), Q * 2, s2, stream>>>(tc, tb, cb_ws, d);
   const int per = d.P * d.N / 4;
-  ssd_wgmma_scan<<<dim3((per + SCAN_THREADS - 1) / SCAN_THREADS, d.H, d.B), SCAN_THREADS, 0,
+  ssd_chunk_scan<<<dim3((per + SCAN_THREADS - 1) / SCAN_THREADS, d.H, d.B), SCAN_THREADS, 0,
                    stream>>>(cum_ws, st_ws, d);
   ssd_wgmma_out<Q><<<dim3(d.NC * ptiles, d.H, d.B), Q * 2, s4, stream>>>(
       tx, tc, cum_ws, cb_ws, st_ws, static_cast<__nv_bfloat16*>(y), d);

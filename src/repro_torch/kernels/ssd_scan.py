@@ -6,9 +6,11 @@ raises. :func:`entry` picks the kernel from the dtype and the shape: bf16
 at the shapes :func:`repro_torch.kernels.ssd_scan_wgmma.takes` accepts (the
 Mamba-2 780M's P 64, N 128, chunk 128 among them) goes to the tensor-core
 kernel ``csrc/ssd_scan_wgmma.cu`` (the chunks in parallel, ``wgmma``
-products, each fp32 operand of a product as two bf16 terms), every fp32
-call and bf16 at other shapes to the FFMA kernel ``csrc/ssd_scan.cu``.
-There is no fallback from one to the other. The plain version is the
+products, each fp32 operand of a product as two bf16 terms), fp32 at the
+shapes :func:`repro_torch.kernels.ssd_scan_tf32.takes` accepts (the same)
+to the tensor-core kernel ``csrc/ssd_scan_tf32.cu`` (the same four passes,
+every product in 3xTF32), and other shapes of either dtype to the FFMA
+kernel ``csrc/ssd_scan.cu``. There is no fallback from one to another. The plain version is the
 chunked dual form of ``repro/kernels/ops.py::_ssd_chunked_xla`` in torch:
 per chunk of length Q with inclusive cumsum ``cum`` of ``la``,
 
@@ -28,6 +30,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import ssd_scan_tf32 as tf32
 from repro_torch.kernels import ssd_scan_wgmma as wgmma
 from repro_torch.kernels.ops import LaunchCounter, use_kernel
 
@@ -35,7 +38,8 @@ COUNTER = LaunchCounter("ssd_scan")
 _LIB = "ssd_scan"
 FFMA = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
 # C entry -> the library (csrc/<name>.cu) that exports it
-ENTRIES = {**{name: _LIB for name in FFMA.values()}, wgmma.ENTRY: wgmma.LIB}
+ENTRIES = {**{name: _LIB for name in FFMA.values()}, wgmma.ENTRY: wgmma.LIB,
+           tf32.ENTRY: tf32.LIB}
 _ROWS = 32  # score rows the kernel holds at once (ROWS in ssd_scan.cu)
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
 
@@ -97,19 +101,24 @@ def entry(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
     (after it is clamped to S).
 
     bf16 where :func:`repro_torch.kernels.ssd_scan_wgmma.takes` accepts the
-    shape -> ``ssd_scan_bf16_wgmma`` (tensor cores); fp32 -> ``ssd_scan_f32``
-    and other bf16 -> ``ssd_scan_bf16`` (FFMA). Other dtypes raise ``TypeError``.
+    shape -> ``ssd_scan_bf16_wgmma``; fp32 where
+    :func:`repro_torch.kernels.ssd_scan_tf32.takes` accepts it ->
+    ``ssd_scan_f32_tf32`` (both on the tensor cores); other fp32 ->
+    ``ssd_scan_f32`` and other bf16 -> ``ssd_scan_bf16`` (FFMA). Other dtypes
+    raise ``TypeError``.
     """
     if dtype not in FFMA:
         raise TypeError(f"ssd_scan kernel takes float32 or bfloat16 x/b/c, got {dtype}")
-    return wgmma.ENTRY if wgmma.takes(dtype, p, n, chunk) else FFMA[dtype]
+    if wgmma.takes(dtype, p, n, chunk):
+        return wgmma.ENTRY
+    return tf32.ENTRY if tf32.takes(dtype, p, n, chunk) else FFMA[dtype]
 
 
 def _fn(name: str):
     fn = getattr(build.library(ENTRIES[name]), name)
     if fn.argtypes is None:
         # x, la, b, c, y, (ws,) dims, stream
-        fn.argtypes = [ctypes.c_void_p] * (8 if name == wgmma.ENTRY else 7)
+        fn.argtypes = [ctypes.c_void_p] * (8 if name in (wgmma.ENTRY, tf32.ENTRY) else 7)
         fn.restype = ctypes.c_int
     return fn
 
@@ -119,10 +128,11 @@ def launch(name: str, x: torch.Tensor, la: torch.Tensor, b: torch.Tensor, c: tor
     """Launch C entry ``name`` on CUDA operands; y (B, H, S, P) in x's dtype.
 
     :func:`ssd_scan` calls it with :func:`entry`'s choice; a caller may name
-    the FFMA bf16 entry for operands the tensor-core entry takes (to time
-    it). The tensor-core entry checks TMA's rules on x, b and c
-    (:func:`repro_torch.kernels.ssd_scan_wgmma.tma_strides`) and allocates
-    its workspace. Counts one launch, under the entry's name.
+    an FFMA entry for operands a tensor-core entry takes (to time it). The
+    tensor-core entries check their rules on x, b and c
+    (:func:`repro_torch.kernels.ssd_scan_wgmma.tma_strides`,
+    :func:`repro_torch.kernels.ssd_scan_tf32.operand_strides`) and allocate
+    their workspace. Counts one launch, under the entry's name.
     """
     if not use_kernel(x, la, b, c):
         raise ValueError(f"ssd_scan: {name} takes CUDA tensors; ssd_scan runs the plain "
@@ -143,6 +153,14 @@ def launch(name: str, x: torch.Tensor, la: torch.Tensor, b: torch.Tensor, c: tor
                              f"P {p}, N {n}, chunk {chunk}")
         strides = [wgmma.tma_strides(t, nm) for t, nm in ((x, "x"), (b, "b"), (c, "c"))]
         ws = torch.empty(wgmma.workspace_bytes(bb, h, g, s, p, n, chunk) // 4,
+                         dtype=torch.float32, device=x.device)
+    elif name == tf32.ENTRY:
+        if not tf32.takes(x.dtype, p, n, chunk):
+            raise ValueError(f"{name} takes fp32 with P and N multiples of {tf32.TILE}, N at "
+                             f"most {tf32.MAX_N} and chunks of {tf32.CHUNKS}, got {x.dtype}, "
+                             f"P {p}, N {n}, chunk {chunk}")
+        strides = [tf32.operand_strides(t, nm) for t, nm in ((x, "x"), (b, "b"), (c, "c"))]
+        ws = torch.empty(tf32.workspace_bytes(bb, h, g, s, p, n, chunk) // 4,
                          dtype=torch.float32, device=x.device)
     elif name == FFMA.get(x.dtype):
         need = smem_bytes(p, n, chunk)

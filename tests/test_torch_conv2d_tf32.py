@@ -21,6 +21,7 @@ import torch
 
 from repro.kernels.conv2d import conv2d_ntx as jax_conv2d_ntx
 from repro_torch.kernels import conv2d
+from repro_torch.kernels import conv2d_ntx_stem as stem
 from repro_torch.kernels import conv2d_ntx_tf32 as tf32
 from repro_torch.kernels.gemm_wgmma import split_tf32
 from repro_torch.kernels.ref import conv2d_ref
@@ -111,16 +112,21 @@ def test_emulation_does_not_depend_on_tile_h_and_refuses_other_term_counts():
         tf32.emulate(x, wt, terms=2)
 
 
+# channel counts the 3xTF32 kernel does not take go to the stem kernel
+# (csrc/conv2d_ntx_stem.cu) where kh*kw*Cin <= 256 and Cout is a multiple of
+# 64 (L0's 7 x 7 x 3; Cin 48 at 1 x 1), else to FFMA
 @pytest.mark.parametrize("cin,cout,want", [
     (64, 192, tf32.ENTRY), (256, 64, tf32.ENTRY), (512, 192, tf32.ENTRY), (32, 64, tf32.ENTRY),
-    (96, 128, tf32.ENTRY), (3, 64, conv2d.FFMA), (48, 64, conv2d.FFMA), (64, 100, conv2d.FFMA),
+    (96, 128, tf32.ENTRY), (3, 64, stem.ENTRY), (48, 64, stem.ENTRY), (64, 100, conv2d.FFMA),
     (64, 32, conv2d.FFMA),
 ], ids=["L1", "L2", "L3", "cin32", "cin96", "L0", "cin48", "cout100", "cout32"])
 def test_entry_sends_fp32_by_channels(cin, cout, want):
-    assert conv2d.entry(torch.float32, cin, cout) == want
+    k = 7 if cin == 3 else 1  # L0's taps
+    assert conv2d.entry(torch.float32, cin, cout, k, k, 2 if cin == 3 else 1) == want
     assert tf32.takes(torch.float32, cin, cout) == (want == tf32.ENTRY)
     assert not tf32.takes(torch.bfloat16, cin, cout)
-    assert conv2d.ENTRIES[want] == (tf32.LIB if want == tf32.ENTRY else "conv2d_ntx")
+    assert conv2d.ENTRIES[want] == {tf32.ENTRY: tf32.LIB, stem.ENTRY: stem.LIB}.get(
+        want, "conv2d_ntx")
 
 
 @pytest.mark.parametrize("cout", [64, 128, 192, 256, 384])

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from repro.kernels.conv2d import conv2d_ntx as jax_conv2d_ntx
-from repro_torch.kernels import conv2d, conv2d_ntx_tf32
+from repro_torch.kernels import conv2d, conv2d_ntx_stem, conv2d_ntx_tf32
 from repro_torch.kernels import conv2d_ntx_wgmma as wgmma
 from repro_torch.kernels.ref import conv_rounded_once_share
 
@@ -61,22 +61,25 @@ def _staged(x, w, stride, chunk, *, round_bf16=False):
     return acc.bfloat16()
 
 
+# Cin 3 (L0, 7 x 7 at stride 2) and Cin 96 at 1 x 1 in bf16 go to the stem
+# kernel (csrc/conv2d_ntx_stem.cu): kh*kw*Cin <= 256, Cout a multiple of 64
 @pytest.mark.parametrize("dtype,cin,cout,want", [
     (torch.float32, 64, 192, conv2d_ntx_tf32.ENTRY),
-    (torch.float32, 3, 64, conv2d.FFMA),
+    (torch.float32, 3, 64, conv2d_ntx_stem.ENTRY),
     (torch.bfloat16, 64, 192, wgmma.ENTRY),
     (torch.bfloat16, 256, 64, wgmma.ENTRY),
     (torch.bfloat16, 512, 192, wgmma.ENTRY),
     (torch.bfloat16, 128, 128, wgmma.ENTRY),
-    (torch.bfloat16, 3, 64, conv2d.FFMA),
-    (torch.bfloat16, 96, 64, conv2d.FFMA),
+    (torch.bfloat16, 3, 64, conv2d_ntx_stem.ENTRY),
+    (torch.bfloat16, 96, 64, conv2d_ntx_stem.ENTRY),
     (torch.bfloat16, 64, 100, conv2d.FFMA),
 ], ids=["f32-L1", "f32-L0", "bf16-L1", "bf16-L2", "bf16-L3", "bf16-128", "bf16-L0",
         "bf16-cin96", "bf16-cout100"])
 def test_entry_follows_dtype_and_channels(dtype, cin, cout, want):
-    assert conv2d.entry(dtype, cin, cout) == want
-    lib = {wgmma.ENTRY: wgmma.LIB, conv2d_ntx_tf32.ENTRY: conv2d_ntx_tf32.LIB}.get(want,
-                                                                                "conv2d_ntx")
+    k, stride = (7, 2) if cin == 3 else (1, 1)  # L0's taps
+    assert conv2d.entry(dtype, cin, cout, k, k, stride) == want
+    lib = {wgmma.ENTRY: wgmma.LIB, conv2d_ntx_tf32.ENTRY: conv2d_ntx_tf32.LIB,
+           conv2d_ntx_stem.ENTRY: conv2d_ntx_stem.LIB}.get(want, "conv2d_ntx")
     assert conv2d.ENTRIES[want] == lib
 
 

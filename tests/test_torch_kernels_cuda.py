@@ -18,12 +18,13 @@ import torch
 
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import conv2d, flash_attention, fused, ntx_matmul, ops, ssd_scan, streaming
+from repro_torch.kernels import conv2d_ntx_stem as conv_stem
 from repro_torch.kernels import conv2d_ntx_tf32 as conv_tf32
 from repro_torch.kernels import conv2d_ntx_wgmma as conv_wgmma
 from repro_torch.kernels import flash_attention_tf32 as attn_tf32
 from repro_torch.kernels import flash_attention_wgmma as wgmma
 from repro_torch.kernels import gemm_wgmma as gemm
-from repro_torch.kernels import ssd_scan_wgmma
+from repro_torch.kernels import ssd_scan_tf32, ssd_scan_wgmma
 from repro_torch.kernels.ref import (attention_ref, conv2d_ref, conv_rounded_once_share,
                                      matmul_ref64, rounded_once_share, ssd_ref,
                                      ssd_rounded_once_share)
@@ -363,18 +364,19 @@ def test_ssd_wgmma_matches_its_emulation_and_the_gate_rejects_one_term(cuda_devi
 
 @pytest.mark.cuda
 def test_ssd_launches_are_counted_per_entry(cuda_device):
-    """fp32 on the FFMA entry; bf16 on the tensor-core entry where it takes
-    the shape and on the FFMA bf16 entry elsewhere, or when named."""
+    """Each dtype on its tensor-core entry where that takes the shape (fp32
+    3xTF32, bf16 wgmma) and on its FFMA entry elsewhere, or when named."""
     ssd_scan.COUNTER.reset()
     for dtype, p, n, chunk in ((torch.float32, 64, 128, 128), (torch.bfloat16, 64, 128, 128),
-                               (torch.bfloat16, 32, 32, 64), (torch.bfloat16, 64, 64, 64)):
+                               (torch.bfloat16, 32, 32, 64), (torch.bfloat16, 64, 64, 64),
+                               (torch.float32, 32, 32, 64)):
         ssd_scan.ssd_scan(*_ssd_inputs(1, 2, 1, 128, p, n, 1, cuda_device, dtype), chunk=chunk)
     x, la, b, c = _ssd_inputs(1, 2, 1, 128, 64, 128, 1, cuda_device, torch.bfloat16)
     ffma = ssd_scan.launch("ssd_scan_bf16", x, la, b, c)
     torch.cuda.synchronize()
     assert ssd_scan.COUNTER.entries == {
-        "ssd_scan_f32": 1, "ssd_scan_bf16": 2, ssd_scan_wgmma.ENTRY: 2}
-    assert (ssd_scan.COUNTER.launches, ssd_scan.COUNTER.plain_calls) == (5, 0)
+        ssd_scan_tf32.ENTRY: 1, "ssd_scan_f32": 1, "ssd_scan_bf16": 2, ssd_scan_wgmma.ENTRY: 2}
+    assert (ssd_scan.COUNTER.launches, ssd_scan.COUNTER.plain_calls) == (6, 0)
     assert _rel_err(ffma, ssd_scan.ssd_scan_torch(x, la, b, c)) <= SSD_TOL[torch.bfloat16]
 
 
@@ -914,9 +916,10 @@ def test_conv2d_wgmma_entry_refuses_operands_it_cannot_read(cuda_device):
 
 @pytest.mark.cuda
 def test_conv2d_launches_are_counted_per_entry(cuda_device):
-    """Cin 3 and Cout 100 on the FFMA entry; Cin 64 on the tensor cores, fp32 on
-    the 3xTF32 entry (its split of w counted apart) and bf16 on the bf16 one;
-    the FFMA entry named directly takes bf16 at Cin 64 too."""
+    """Cin 3 on the stem entry in both dtypes, Cout 100 on the FFMA entry;
+    Cin 64 on the tensor cores, fp32 on the 3xTF32 entry (its split of w
+    counted apart) and bf16 on the bf16 one; the FFMA entry named directly
+    takes bf16 at Cin 64 too."""
     conv2d.COUNTER.reset()
     for dtype, cin, cout in ((torch.float32, 64, 64), (torch.float32, 3, 64),
                              (torch.bfloat16, 3, 64), (torch.bfloat16, 64, 64),
@@ -925,8 +928,8 @@ def test_conv2d_launches_are_counted_per_entry(cuda_device):
     x, wt = _conv_inputs(1, 10, 10, 64, 3, 3, 64, 1, torch.bfloat16, cuda_device)
     ffma = conv2d.launch(conv2d.FFMA, x, wt)
     torch.cuda.synchronize()
-    assert conv2d.COUNTER.entries == {conv2d.FFMA: 4, conv_wgmma.ENTRY: 1, conv_tf32.ENTRY: 1,
-                                      conv_tf32.SPLIT: 1}
+    assert conv2d.COUNTER.entries == {conv2d.FFMA: 2, conv_wgmma.ENTRY: 1, conv_tf32.ENTRY: 1,
+                                      conv_tf32.SPLIT: 1, conv_stem.ENTRY: 2}
     assert conv2d.COUNTER.launches == 6
     _conv_close(ffma, conv2d.conv2d_ntx_torch(x, wt))
 
@@ -1069,3 +1072,159 @@ def test_tf32_conv2d_entry_refuses_operands_it_cannot_read(cuda_device):
     with pytest.raises(ValueError, match="takes fp32 with Cin a multiple of 32"):
         conv2d.launch(conv_tf32.ENTRY, x.bfloat16(), wt.bfloat16())
     assert conv2d.COUNTER.launches == 0
+
+
+# the stem entry (Cin 3-style channel counts, kh*kw*Cin <= 256, Cout a
+# multiple of 64; fp32 and bf16): L0's 7 x 7 x 3 at stride 2 on planes with
+# ragged 8 x 16 pixel tiles, Cout 128, 3 x 3 and 1 x 1 stems, Cin 5
+CONV_STEM_CASES = [(2, 45, 45, 3, 7, 7, 64, 2), (1, 38, 51, 3, 7, 7, 128, 2),
+                   (2, 14, 19, 3, 3, 3, 64, 1), (1, 17, 15, 5, 3, 3, 64, 2),
+                   (1, 9, 9, 3, 1, 1, 64, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,h,w,cin,kh,kw,cout,stride", CONV_STEM_CASES)
+def test_stem_conv2d_entry_matches_plain_and_its_emulation(cuda_device, n, h, w, cin, kh, kw,
+                                                           cout, stride, dtype):
+    """Through the stem entry vs plain and the fp64 conv at the band of its
+    dtype and vs its emulation; bf16 at most 1 % of y off the fp64 conv
+    rounded once; at L0's 7 x 7 x 3, fp32 RMS error against fp64 at most 1.05
+    x the plain version's (short sums read above it: the band holds them);
+    the same bits run to run and for every tile_h."""
+    x, wt = _conv_inputs(n, h, w, cin, kh, kw, cout, stride, dtype, cuda_device)
+    conv2d.COUNTER.reset()
+    got = conv2d.conv2d_ntx(x, wt, stride=stride)
+    again = conv2d.conv2d_ntx(x, wt, stride=stride)
+    torch.cuda.synchronize()
+    assert conv2d.COUNTER.entries == {conv_stem.ENTRY: 2}
+    assert conv2d.COUNTER.plain_calls == 0
+    assert torch.equal(got, again)
+    want = conv2d.conv2d_ntx_torch(x, wt, stride=stride)
+    ref64 = conv2d_ref(x.double(), wt.double(), stride=stride)
+    _conv_close(got, want)
+    _conv_close(got, ref64.to(dtype))
+    _conv_close(got, conv_stem.emulate(x, wt, stride=stride))
+    if dtype == torch.bfloat16:
+        assert conv_rounded_once_share(got, x, wt, stride) <= 1e-2
+    elif kh * kw * cin == 147:
+        assert _rms_ratio(got, ref64, want) <= 1.05
+    for tile_h in (1, 3, 100):
+        assert torch.equal(got, conv2d.conv2d_ntx(x, wt, stride=stride, tile_h=tile_h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_stem_conv2d_entry_reads_any_strides(cuda_device, dtype):
+    """NCHW data viewed as NHWC (chip_smoke.py's fp32 L0) and a padded plane's
+    interior give the bits of their contiguous copies."""
+    rng = np.random.RandomState(9)
+    nchw = torch.as_tensor(rng.randn(2, 3, 47, 47), dtype=torch.float32).to(cuda_device, dtype)
+    wt = torch.as_tensor(rng.randn(7, 7, 3, 64) * 0.2, dtype=torch.float32).to(cuda_device, dtype)
+    x = nchw.permute(0, 2, 3, 1)
+    inner = x[:, 1:-1, 2:-2]
+    conv2d.COUNTER.reset()
+    for view in (x, inner):
+        assert not view.is_contiguous()
+        got = conv2d.conv2d_ntx(view, wt, stride=2)
+        assert torch.equal(got, conv2d.conv2d_ntx(view.contiguous(), wt, stride=2))
+    torch.cuda.synchronize()
+    assert conv2d.COUNTER.entries == {conv_stem.ENTRY: 4}
+
+
+@pytest.mark.cuda
+def test_stem_conv2d_entry_refuses_shapes_it_does_not_take(cuda_device):
+    x, wt = _conv_inputs(1, 20, 20, 3, 7, 7, 64, 2, torch.float32, cuda_device)
+    conv2d.COUNTER.reset()
+    with pytest.raises(ValueError, match="kh\\*kw\\*Cin up to 256"):
+        conv2d.launch(conv_stem.ENTRY, x, wt[..., :48], stride=2)  # Cout 48
+    x64, w64 = _conv_inputs(1, 12, 12, 64, 3, 3, 64, 1, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="channel counts the wide kernels do not take"):
+        conv2d.launch(conv_stem.ENTRY, x64, w64)  # the 3xTF32 kernel's channels
+    with pytest.raises(ValueError, match="a slab that fits one block"):
+        conv2d.launch(conv_stem.ENTRY, *_conv_inputs(1, 160, 160, 3, 7, 7, 64, 20,
+                                                     torch.bfloat16, cuda_device), stride=20)
+    assert conv2d.COUNTER.launches == 0
+
+
+# (B, H, G, S, P, N, chunk) the fp32 tensor-core SSD entry takes: the Mamba-2
+# 780M's P 64, N 128, chunk 128 (the one SSD_CASES shape it takes among
+# them), G 2 at N 64 and chunk 64, P 128 with N 256, and G 4 with 8 heads
+SSD_TF32_CASES = [
+    (1, 2, 1, 128, 64, 128, 128),
+    (2, 4, 2, 256, 64, 64, 64),
+    (1, 2, 1, 256, 128, 256, 128),
+    (1, 8, 4, 384, 64, 192, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,h,g,s,p,n,chunk", SSD_TF32_CASES)
+def test_ssd_tf32_entry_matches_plain_ref_and_emulation(cuda_device, bs, h, g, s, p, n, chunk):
+    """fp32 through the 3xTF32 entry vs plain, ssd_ref and its emulation at
+    3e-5 of max|y|, RMS error against the fp64 ssd_ref at most 1.05 x the
+    plain version's, and the same bits run to run."""
+    x, la, b, c = _ssd_inputs(bs, h, g, s, p, n, s + p + n, cuda_device)
+    assert ssd_scan.entry(torch.float32, p, n, chunk) == ssd_scan_tf32.ENTRY
+    ssd_scan.COUNTER.reset()
+    got = ssd_scan.ssd_scan(x, la, b, c, chunk=chunk)
+    again = ssd_scan.ssd_scan(x, la, b, c, chunk=chunk)
+    want = ssd_scan.ssd_scan_torch(x, la, b, c, chunk=chunk)
+    ref64 = ssd_ref(x, la, b, c, compute_dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert ssd_scan.COUNTER.entries == {ssd_scan_tf32.ENTRY: 2}
+    assert torch.equal(got, again)
+    assert _rel_err(got, want) <= SSD_TOL[torch.float32]
+    assert _rel_err(got, ref64) <= SSD_TOL[torch.float32]
+    assert _rel_err(got, ssd_scan_tf32.emulate(x, la, b, c, chunk=chunk)) <= SSD_TOL[torch.float32]
+    assert _rms_ratio(got, ref64, want) <= 1.05
+
+
+@pytest.mark.cuda
+def test_ssd_tf32_strided_views_give_the_bits_of_contiguous_operands(cuda_device):
+    x, la, b, c = _ssd_inputs(2, 8, 2, 256, 64, 128, 3, cuda_device)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (x, la, b, c)]
+    assert not any(v.is_contiguous() for v in views)
+    got = ssd_scan.ssd_scan(*views, chunk=128)
+    want = ssd_scan.ssd_scan(x, la, b, c, chunk=128)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_ssd_tf32_strong_decay_and_dt_to_one(cuda_device):
+    """la -4.8 per step (exp above the diagonal overflows) vs plain, and dt up
+    to 1.0 (la to -48) vs the sequential ssd_ref: finite, within 3e-5."""
+    bs, h, g, s, p, n = 1, 48, 1, 256, 64, 128
+    x, _, b, c = _ssd_inputs(bs, h, g, s, p, n, 5, cuda_device)
+    a = torch.arange(1, h + 1, dtype=torch.float32, device=cuda_device)
+    strong = (-0.1 * a[None, :, None]).expand(bs, h, s).contiguous()
+    dt = torch.as_tensor(np.random.RandomState(6).rand(bs, h, s), dtype=torch.float32,
+                         device=cuda_device)
+    ssd_scan.COUNTER.reset()
+    got = ssd_scan.ssd_scan(x, strong, b, c, chunk=128)
+    to_one = ssd_scan.ssd_scan(x, -dt * a[None, :, None], b, c, chunk=128)
+    torch.cuda.synchronize()
+    assert ssd_scan.COUNTER.entries == {ssd_scan_tf32.ENTRY: 2}
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(to_one).all())
+    assert _rel_err(got, ssd_scan.ssd_scan_torch(x, strong, b, c, chunk=128)) <= 3e-5
+    assert _rel_err(to_one, ssd_ref(x, -dt * a[None, :, None], b, c)) <= 3e-5
+
+
+@pytest.mark.cuda
+def test_ssd_tf32_refuses_operands_it_cannot_read(cuda_device):
+    x, la, b, c = _ssd_inputs(1, 2, 1, 128, 64, 128, 2, cuda_device)
+    odd = torch.zeros(1, 1, 128, 130, device=cuda_device)[..., :128]
+    odd.copy_(b)  # rows of 520 bytes
+    shifted = torch.zeros(x.numel() + 1, device=cuda_device)[1:].view(x.shape)
+    shifted.copy_(x)
+    ssd_scan.COUNTER.reset()
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        ssd_scan.ssd_scan(x, la, odd, c)
+    with pytest.raises(ValueError, match="16-byte-aligned base"):
+        ssd_scan.ssd_scan(shifted, la, b, c)
+    with pytest.raises(ValueError, match="unit last stride"):
+        ssd_scan.ssd_scan(x, la, b, c.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError, match="takes fp32 with P and N multiples of 64"):
+        ssd_scan.launch(ssd_scan_tf32.ENTRY, x.bfloat16(), la, b.bfloat16(), c.bfloat16())
+    assert ssd_scan.COUNTER.launches == 0

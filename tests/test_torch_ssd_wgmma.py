@@ -115,10 +115,14 @@ def test_emulation_refuses_other_term_counts():
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_entry_follows_dtype_and_shape(bs, h, g, s, p, n, chunk, dtype):
-    tensor_cores = dtype == torch.bfloat16 and p == 64 and n == 128 and chunk == 128
-    want = wgmma.ENTRY if tensor_cores else ssd_scan.FFMA[dtype]
+    # fp32 at the shapes the bf16 kernel takes goes to the fp32 tensor-core
+    # kernel (csrc/ssd_scan_tf32.cu); tests/test_torch_ssd_tf32.py holds it
+    tensor_cores = p == 64 and n == 128 and chunk == 128
+    libs = {torch.bfloat16: (wgmma.ENTRY, "ssd_scan_wgmma"),
+            torch.float32: ("ssd_scan_f32_tf32", "ssd_scan_tf32")}
+    want, lib = libs[dtype] if tensor_cores else (ssd_scan.FFMA[dtype], "ssd_scan")
     assert ssd_scan.entry(dtype, p, n, chunk) == want
-    assert ssd_scan.ENTRIES[want] == ("ssd_scan_wgmma" if tensor_cores else "ssd_scan")
+    assert ssd_scan.ENTRIES[want] == lib
 
 
 def test_takes_the_documented_shapes_only():
