@@ -10,8 +10,10 @@ holds each kernel against its plain PyTorch version at the shapes of the
 main path, drives the main paths and checks that each went through its kernels:
 
 * ``repro_torch.launch.train.run_ntx_cnn`` on the paper CNN at batch 64,
-  img 32, fused and then ``--no-fuse`` (the fused-region kernel, and
-  ``streaming_matmul`` on the tensor-core GEMM of K-tile partials);
+  img 32, fused and then ``--no-fuse`` (the fused-region kernel on its
+  shared-memory entry, a thread-block cluster per image, with the arena
+  entry checked and timed beside it; and ``streaming_matmul`` on the
+  tensor-core GEMM of K-tile partials);
 * ``repro_torch.models.lm.prefill`` of Mamba-2 780M at full width and
   depth (48 layers, d_model 1536, vocab 50,288) on 2 x 2,048 tokens, in
   bf16 and in fp32 (the SSD-scan kernels, 48 launches per prefill, both on
@@ -28,7 +30,10 @@ main path, drives the main paths and checks that each went through its kernels:
   ``repro_torch.kernels.conv2d_ntx`` on the four layers in fp32 and in bf16
   (the direct-convolution kernels, all on the tensor cores: L1-L3 on the
   wide kernels, bf16 as it is and fp32 as 3xTF32, L0's Cin 3 stem on the
-  stem kernel in both dtypes).
+  stem kernel in both dtypes);
+* the fp32 sums too short for 3xTF32 (conv K 27, K 45, 1 x 1 x 32;
+  attention with a window of 32), routed to the FFMA kernels and held by
+  the RMS gate against fp64 with the 1xTF32 control.
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` JSON line, and ``{"ok": true, "device": {...}}``.
@@ -79,16 +84,16 @@ ATTN_BF16 = 1e-2
 ROUNDED_ONCE = 1e-2
 # fp32 attention and conv on the 3xTF32 tensor-core kernels are also held by
 # ntx_matmul's RMS gate (MM_RMS): RMS error against the fp64 result at most
-# 1.05 x the plain version's. Attention reads it at these cases; the 1xTF32
-# product (hi.hi alone), q and k rounded to bf16, and p rounded to bf16 must
-# fail it. The conv reads it at every layer the tensor-core kernel takes.
-# The case whose rows see at most 32 keys is read, not gated: hi + lo keep
-# about 22 of fp32's 24 significand bits and lo.lo is dropped, so every
-# 3xTF32 product is off by up to about 2**-21 of itself where the plain
-# version's fp32 product is off by 2**-24; long sums hide that under their
-# own rounding, sums of a few dozen terms do not (1.19 x on an H100).
-ATTN_RMS_CASES = ("qwen prefill f32", "GQA 32/8 D 128 f32", "KV tail 600 f32",
-                  "window 1024 f32")
+# 1.05 x the plain version's. Attention reads it at every case on that entry;
+# the 1xTF32 product (hi.hi alone), q and k rounded to bf16, and p rounded to
+# bf16 must fail it. The conv reads it at every layer the tensor-core kernel
+# takes. hi + lo keep about 22 of fp32's 24 significand bits and lo.lo is
+# dropped, so every 3xTF32 product is off by up to about 2**-21 of itself
+# where the plain version's fp32 product is off by 2**-24; long sums hide
+# that under their own rounding, sums of a few dozen terms do not. So fp32
+# convs with K below conv2d.F32_TF32_MIN_K and attention with a window below
+# flash_attention.F32_TF32_MIN_WINDOW go to the FFMA entries (check_c5); the
+# first rows of a long causal call still sum few keys on 3xTF32 (printed).
 # Qwen1.5-0.5B prefill: batch x tokens, ids below the vocab 151,936
 QWEN_BATCH, QWEN_SEQ, QWEN_TOKEN_HIGH = 2, 2048, 151_936
 # the paper's GoogLeNet conv layers (Tables 2-4; CONV_LAYERS["googlenet"] of
@@ -248,18 +253,21 @@ def build_kernels():
 
 
 def ptxas_summary(name: str) -> str:
-    """The most registers and spill bytes ptxas reports over a library's kernels."""
+    """The most registers, static shared bytes and spill bytes ptxas reports
+    over a library's kernels."""
     import re
 
     from repro_torch.kernels import build
 
     log = build.BUILD_LOGS.get(name, "")
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    smem = [int(b) for b in re.findall(r"(\d+) bytes smem", log)]
     spills = [int(a) + int(b) for a, b in
               re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
     if not regs:
         return f"{name}: no ptxas report (built before this run)"
-    return f"{name}: at most {max(regs)} registers, {max(spills, default=0)} bytes spilled"
+    return (f"{name}: at most {max(regs)} registers, {max(smem, default=0)} bytes of static "
+            f"shared memory, {max(spills, default=0)} bytes spilled")
 
 
 def main_path_graph_inputs(device):
@@ -461,7 +469,11 @@ def library_step(graph, ins):
 
 
 def check_region(smoke: Smoke, device):
-    """The fused-region kernel vs region_torch on the full-width region."""
+    """The fused-region kernel vs region_torch on the full-width region: the
+    shared-memory entry (a cluster per image) that the region routes to,
+    forced cluster sizes, and the arena entry beside it."""
+    import re
+
     import torch
 
     from repro_torch.kernels import fused
@@ -473,9 +485,19 @@ def check_region(smoke: Smoke, device):
     region = plan.segments[0].region
     ins = {n: inputs[n] for n, _ in region.inputs}
     run = fused.build_region_callable(region, device=device)
+    fused.COUNTER.reset()
     got = run(ins)
     want = fused.region_torch(region, ins)
     torch.cuda.synchronize()
+    kern = fused.region_kernel(region, ins, device)
+    c = kern.compiled
+    assert fused.COUNTER.entries == {fused.SMEM: 1}, fused.COUNTER.entries
+    staged = sum(b.numel for b in c.buffers if b.mode & fused.STAGED)
+    print(f"  {region.label}: {fused.SMEM}, cluster {kern.cluster} CTAs an image "
+          f"({BATCH * kern.cluster} CTAs; clusters the card runs at once by size "
+          f"{fused.active_clusters(4 * c.smem, device)}), {4 * c.smem} + {fused.SMEM_STATIC} "
+          f"bytes of shared memory a CTA ({staged} floats staged); "
+          f"{ptxas_summary('fused_region')}")
     worst = 0.0
     for k, v in want.items():
         err = max_abs(got[k], v)
@@ -483,6 +505,18 @@ def check_region(smoke: Smoke, device):
         print(f"  {k:>12} {tuple(v.shape)!s:>16} max_abs {err:.3e}")
     for k, v in want.items():
         torch.testing.assert_close(got[k], v, **TOL, msg=f"fused region output {k}")
+    # bits: run == run and the same at every forced cluster size; the arena
+    # entry is held against plain too
+    for cl in (1, 2, 4, 8):
+        again = kern(ins, cluster=cl)
+        assert all(torch.equal(again[k], got[k]) for k in got), f"cluster {cl} changed the bits"
+    arena = kern(ins, name=fused.ARENA)
+    for k, v in want.items():
+        torch.testing.assert_close(arena[k], v, **TOL, msg=f"arena entry output {k}")
+    torch.cuda.synchronize()
+    print(f"  clusters of 1, 2, 4 and 8 CTAs: the same bits as the routed run; the arena entry "
+          f"within rtol {TOL['rtol']} / atol {TOL['atol']}, max_abs "
+          f"{max(max_abs(arena[k], v) for k, v in want.items()):.3e}")
     lib = library_step(graph, ins)
     for k, v in want.items():
         torch.testing.assert_close(lib[k], v, rtol=1e-3, atol=1e-5,
@@ -490,8 +524,8 @@ def check_region(smoke: Smoke, device):
     print(f"  eager-torch (cuDNN + autograd) step agrees within rtol 1e-3 / atol 1e-5; "
           f"max_abs {max(max_abs(lib[k], v) for k, v in want.items()):.3e}")
 
-    # max-pool ties, exact: the all-ties window case and plateaued
-    # activations at the main path's pool width
+    # max-pool ties, exact, on both entries: the all-ties window case and
+    # plateaued activations at the main path's pool width
     g = torch.Generator(device="cpu").manual_seed(1)
     for spec, b, x in (
         (MaxPool2dSpec(4, 4, 2), 2, torch.ones(2, 4, 4, 2)),
@@ -503,19 +537,39 @@ def check_region(smoke: Smoke, device):
                           outputs=(("d_x", "batched"),))
         gy = torch.randn(b, spec.out_h, spec.out_w, spec.c, generator=g)
         pins = {"x": x.to(device), "d_a_p1": gy.to(device)}
-        pk = fused.build_region_callable(pool, device=device)(pins)["d_x"]
         pp = fused.region_torch(pool, pins)["d_x"]
-        torch.testing.assert_close(pk, pp, rtol=0, atol=0, msg=f"maxpool ties {spec}")
-        print(f"  maxpool ties {spec.in_h}x{spec.in_w}x{spec.c} batch {b}: exact")
+        pk = fused.region_kernel(pool, pins, device)
+        assert pk.entry == fused.SMEM, pk.entry
+        for name in (fused.SMEM, fused.ARENA):
+            torch.testing.assert_close(pk(pins, name=name)["d_x"], pp, rtol=0, atol=0,
+                                       msg=f"maxpool ties {spec} on {name}")
+        print(f"  maxpool ties {spec.in_h}x{spec.in_w}x{spec.c} batch {b}: exact on both entries")
 
-    ms = time_ms(lambda: run(ins))
+    # the old entry beside the new one, A B B A, by events and by device time
+    def arena_run():
+        return kern(ins, name=fused.ARENA)
+
+    def smem_run():
+        return run(ins)
+
+    times = [time_ms(f) for f in (arena_run, smem_run, smem_run, arena_run)]
+    ms, arena_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+    dev_ms, arena_dev = device_ms(smem_run), device_ms(arena_run)
+    by_kernel = kernel_ms(smem_run)
     plain = time_ms(lambda: fused.region_torch(region, ins))
     lib_ms = time_ms(lambda: library_step(graph, ins))
+    lib_dev = device_ms(lambda: library_step(graph, ins))
     nbytes, flops = region_work(region, ins, want)
     bnd, by = bound_ms(nbytes, flops)
-    print(f"fused region {region.label} at batch {BATCH}, img {IMG}: kernel {ms:.4f} ms, "
-          f"plain {plain:.4f} ms, eager torch {lib_ms:.4f} ms, bound {bnd:.5f} ms "
+    print(f"fused region {region.label} at batch {BATCH}, img {IMG}: {fused.SMEM} "
+          f"{ms:.4f} ms by events, {dev_ms:.4f} ms device; {fused.ARENA} {arena_ms:.4f} ms by "
+          f"events, {arena_dev:.4f} ms device (A B B A events: "
+          f"{', '.join(f'{t:.4f}' for t in times)}); plain {plain:.4f} ms; eager torch "
+          f"{lib_ms:.4f} ms by events, {lib_dev:.4f} ms device; bound {bnd:.5f} ms "
           f"({nbytes/1e6:.3f} MB, {flops/1e6:.1f} MFLOP, {by})")
+    print("  device time by kernel: " + ", ".join(
+        f"{re.search(r'(\w+)\(', k).group(1)} {v:.4f} ms" for k, v in by_kernel.items()))
+    assert dev_ms < arena_dev, f"the shared-memory entry ({dev_ms:.4f} ms) is not faster"
     smoke.kernels["fused_region"] = {
         "name": "fused_region",
         "route": "cuda",
@@ -528,6 +582,11 @@ def check_region(smoke: Smoke, device):
         "bound_ms": bnd,
         "bound_by": by,
         "library_ms": lib_ms,
+        "entry": fused.SMEM,
+        "device_ms": dev_ms,
+        "arena_ms": arena_ms,
+        "arena_device_ms": arena_dev,
+        "library_device_ms": lib_dev,
     }
 
 
@@ -546,9 +605,11 @@ def main_path(smoke: Smoke, device):
             c.reset()
         res = run_ntx_cnn(STEPS, BATCH, IMG, fuse=fuse, device=device)
         counts = {c.name: (c.launches, c.plain_calls) for c in counters}
-        print(f"  fuse={fuse}: launches / plain calls {counts}, streaming_matmul by C entry "
-              f"{streaming.COUNTER.entries}")
+        print(f"  fuse={fuse}: launches / plain calls {counts}, by C entry: fused_region "
+              f"{fused.COUNTER.entries}, streaming_matmul {streaming.COUNTER.entries}")
         runs[fuse] = (res, counts, dict(streaming.COUNTER.entries))
+        if fuse:  # every fused step on the shared-memory entry, none on the arena entry
+            assert fused.COUNTER.entries == {fused.SMEM: STEPS}, fused.COUNTER.entries
     launches = {"fused_region": runs[True][1]["fused_region"][0],
                 "streaming_matmul": runs[False][1]["streaming_matmul"][0]}
     for name, k in smoke.kernels.items():
@@ -1356,25 +1417,26 @@ def check_attention(smoke: Smoke, device, seq: int = QWEN_SEQ):
         worst = max(worst, max_abs(got, want))
         print(f"{label:>26} {float(want.float().abs().max()):>8.4f} {e_plain:>12.3f} "
               f"{e_ref:>11.3f} {attn_gate(want, dense):>10.3f}  {', '.join(entries)}")
-        assert entries == {fa.entry(dtype, shape[5]): 1}, f"{label}: launched {entries}"
+        entry = fa.entry(dtype, shape[5], window)
+        assert entries == {entry: 1}, f"{label}: launched {entries}"
         assert bool(torch.isfinite(got).all()), f"{label}: non-finite output"
         assert got.dtype == dtype and got.shape == q.shape, f"{label}: {got.dtype} {got.shape}"
         assert e_plain <= 1 and e_ref <= 1, f"{label}: kernel vs plain {e_plain:.3f}, vs ref {e_ref:.3f} of the gate"
-        if fa.entry(dtype, shape[5]) == wgmma.ENTRY:
+        if entry == wgmma.ENTRY:
             share = rounded_once_share(got, q, k, v, **kw)
             print(f"{'':>26} rounded-once share {share:.4%} (gate {ROUNDED_ONCE:.0%}); "
                   f"plain version {rounded_once_share(want, q, k, v, **kw):.4%}")
             assert share <= ROUNDED_ONCE, f"{label}: rounded-once share {share:.4%}"
-        if fa.entry(dtype, shape[5]) == tf32.ENTRY:
+        if entry == tf32.ENTRY:
             ref64 = attention_ref(q, k, v, compute_dtype=torch.float64, **kw)
             ratios[label] = ratio = rms_ratio(got, ref64, want)
-            gated = label in ATTN_RMS_CASES
-            note = "" if gated else (
-                "; not gated: rows see at most 32 keys, and so short a sum does not hide "
-                "3xTF32's product error (hi + lo keep about 22 of 24 bits, lo.lo dropped)")
-            print(f"{'':>26} RMS vs fp64 {ratio:.4f} x the plain version's (gate {MM_RMS}{note})")
-            assert not gated or ratio <= MM_RMS, f"{label}: RMS vs fp64 {ratio:.4f} x plain's"
+            print(f"{'':>26} RMS vs fp64 {ratio:.4f} x the plain version's (gate {MM_RMS})")
+            assert ratio <= MM_RMS, f"{label}: RMS vs fp64 {ratio:.4f} x plain's"
             if label == "qwen prefill f32":
+                first = rms_ratio(got[:, :, :32], ref64[:, :, :32], want[:, :, :32])
+                ratios["qwen prefill f32, rows < 32"] = first
+                print(f"{'':>26} its first 32 rows (each sees at most 32 keys, on 3xTF32; "
+                      f"not gated, ROADMAP C5): RMS vs fp64 {first:.4f} x the plain version's")
                 ctl = {"1xTF32": tf32.emulate(q, k, v, terms=1, **kw),
                        **{kind: control_attention(kind)(q, k, v, **kw)
                           for kind in CONTROLS["float32"]}}
@@ -1501,7 +1563,7 @@ def _attn_launch_gate(calls, dtype):
         units.append(attn_gate(o, want))
         if i == 0:
             ctl = {kind: attn_gate(control_attention(kind)(*args, **kw), want) for kind in kinds}
-            entry = fa.entry(dtype, args[0].shape[3])
+            entry = fa.entry(dtype, args[0].shape[3], kw.get("window"))
             if entry == wgmma.ENTRY:
                 shares = [rounded_once_share(x, *args, **kw) for x in
                           (o, want, control_attention("p_bf16")(*args, **kw))]
@@ -2205,6 +2267,64 @@ def check_conv2d(smoke: Smoke, device, layers=GOOGLENET, batch: int = NTX_BATCH)
     }
 
 
+def check_c5(device):
+    """ROADMAP C5: fp32 sums too short for 3xTF32 go to the FFMA entries. The
+    conv at 3 x 3 x 3 (K 27), 3 x 3 x 5 (K 45) and 1 x 1 x 32, and attention
+    with a window of 32 keys on a 2,048-token call: each routed to FFMA and
+    held by the RMS gate (RMS error against fp64 at most MM_RMS x the plain
+    version's); the 1xTF32 control must fail it; the tensor-core entry that
+    the route avoids is read beside it, forced by name."""
+    import torch
+
+    from repro_torch.kernels import conv2d
+    from repro_torch.kernels import conv2d_ntx_stem as stem
+    from repro_torch.kernels import conv2d_ntx_tf32 as conv_tf32
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_tf32 as attn_tf32
+    from repro_torch.kernels.ref import attention_ref, conv2d_ref
+
+    readings = {}
+    for label, (n, hw, cin, k, cout), tc in (
+            ("conv K 27 (3 x 3 x 3)", (8, 58, 3, 3, 64), stem),
+            ("conv K 45 (3 x 3 x 5)", (8, 58, 5, 3, 64), stem),
+            ("conv 1 x 1 x 32", (8, 56, 32, 1, 64), conv_tf32)):
+        x = seeded((n, hw, hw, cin), torch.float32, device, seed=cin + k)
+        w = seeded((k, k, cin, cout), torch.float32, device, seed=cin + k + 1, scale=0.2)
+        entry = conv2d.entry(torch.float32, cin, cout, k, k, 1)
+        conv2d.COUNTER.reset()
+        y = conv2d.conv2d_ntx(x, w)
+        torch.cuda.synchronize()
+        assert entry == conv2d.FFMA and conv2d.COUNTER.entries == {entry: 1}, (
+            label, entry, conv2d.COUNTER.entries)
+        plain = conv2d.conv2d_ntx_torch(x, w)
+        ref64 = conv2d_ref(x.double(), w.double())
+        r = rms_ratio(y, ref64, plain)
+        forced = rms_ratio(conv2d.launch(tc.ENTRY, x, w), ref64, plain)
+        one = rms_ratio(tc.emulate(x, w, terms=1), ref64, plain)
+        readings[label] = (r, forced, one)
+        del x, w, y, plain, ref64
+    q, k, v = attention_inputs(1, 16, 16, QWEN_SEQ, QWEN_SEQ, 64, torch.float32, device, 7)
+    kw = {"causal": True, "window": 32}
+    entry = fa.entry(torch.float32, 64, 32)
+    fa.COUNTER.reset()
+    o = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert entry == "flash_attention_f32" and fa.COUNTER.entries == {entry: 1}, fa.COUNTER.entries
+    plain = fa.flash_attention_torch(q, k, v, **kw)
+    ref64 = attention_ref(q, k, v, compute_dtype=torch.float64, **kw)
+    forced = fa.launch(attn_tf32.ENTRY, q, k, v, **kw)
+    readings["attention window 32"] = (
+        rms_ratio(o, ref64, plain), rms_ratio(forced, ref64, plain),
+        rms_ratio(attn_tf32.emulate(q, k, v, terms=1, **kw), ref64, plain))
+    for label, (r, forced, one) in readings.items():
+        print(f"  {label}: FFMA entry, RMS vs fp64 {r:.4f} x the plain version's (gate {MM_RMS}); "
+              f"the 3xTF32 entry forced {forced:.4f}; 1xTF32 control {one:.1f} "
+              f"({'rejected' if one > MM_RMS else 'passes'})")
+        assert r <= MM_RMS, f"{label}: RMS vs fp64 {r:.4f} x the plain version's"
+        assert one > MM_RMS, f"the {label} RMS gate let the 1xTF32 control through"
+    return readings
+
+
 def main() -> int:
     import torch
 
@@ -2230,6 +2350,7 @@ def main() -> int:
             smoke.phase("qwen prefill path", qwen_prefill_path, smoke, device)
         smoke.phase("ntx_matmul vs plain", check_ntx_matmul, smoke, device)
         smoke.phase("conv2d_ntx vs plain", check_conv2d, smoke, device)
+        smoke.phase("C5: short fp32 sums on FFMA", check_c5, device)
     if len(smoke.kernels) != 6 and "kernels" not in smoke.failures:
         smoke.failures.append("kernels")
     if smoke.failures:

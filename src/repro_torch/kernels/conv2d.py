@@ -19,7 +19,9 @@ either dtype, to the tensor-core stem kernel ``csrc/conv2d_ntx_stem.cu``
 (the pixel tile's slab of x in shared memory, A fragments from it in
 registers; see :mod:`repro_torch.kernels.conv2d_ntx_stem`), and the rest to
 the FFMA kernel ``csrc/conv2d_ntx.cu`` (one CTA per image, row tile and
-64-channel Cout tile). There is no fallback from one to another. All read x through its strides and sum each output in one
+64-channel Cout tile). fp32 whose sum is short (K below
+:data:`F32_TF32_MIN_K`) also goes to the FFMA kernel: there 3xTF32 reads
+above the plain version's error. There is no fallback from one to another. All read x through its strides and sum each output in one
 order that does not depend on ``tile_h``.
 """
 
@@ -38,6 +40,14 @@ from repro_torch.kernels.ops import LaunchCounter, strict_fp32, use_kernel
 COUNTER = LaunchCounter("conv2d_ntx")
 FFMA = "conv2d_ntx_launch"
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
+# fp32 convs with K = kh*kw*Cin below this go to the FFMA entry: hi + lo keep
+# about 22 of fp32's 24 bits and lo.lo is dropped, so a 3xTF32 product is off
+# by up to about 2**-21 of itself, and a short sum does not hide that under
+# its own rounding. The least K of tests/test_torch_conv2d_stem.py's sweep
+# from which on both fp32 tensor-core entries read at most 1.05 x the plain
+# version's RMS error against fp64 (the Cin-3 stem: 3 x 3 reads about 1.47,
+# 5 x 5 1.05-1.08, 5 x 7 0.93-0.95; the 1 x 1 conv at Cin 96 0.61)
+F32_TF32_MIN_K = 96
 # C entry -> the library (csrc/<name>.cu) that exports it
 ENTRIES = {FFMA: "conv2d_ntx", wgmma.ENTRY: wgmma.LIB, tf32.ENTRY: tf32.LIB,
            stem.ENTRY: stem.LIB}
@@ -87,7 +97,8 @@ def entry(dtype: torch.dtype, cin: int, cout: int, kh: int = 1, kw: int = 1,
     and the taps (kh x kw at ``stride``).
 
     bf16 with Cin and Cout multiples of 64 -> ``conv2d_ntx_bf16_wgmma``;
-    fp32 with Cin a multiple of 32 and Cout a multiple of 64 ->
+    fp32 with kh*kw*Cin below :data:`F32_TF32_MIN_K` -> ``conv2d_ntx_launch``
+    (FFMA); fp32 with Cin a multiple of 32 and Cout a multiple of 64 ->
     ``conv2d_ntx_f32_tf32``; other channel counts with kh*kw*Cin up to 256
     and Cout a multiple of 64, either dtype -> ``conv2d_ntx_stem`` (all three
     on the tensor cores); the rest -> ``conv2d_ntx_launch`` (FFMA). Other
@@ -97,6 +108,8 @@ def entry(dtype: torch.dtype, cin: int, cout: int, kh: int = 1, kw: int = 1,
         raise TypeError(f"conv2d_ntx kernel takes float32 or bfloat16 operands, got {dtype}")
     if wgmma.takes(dtype, cin, cout):
         return wgmma.ENTRY
+    if dtype == torch.float32 and kh * kw * cin < F32_TF32_MIN_K:
+        return FFMA
     if tf32.takes(dtype, cin, cout):
         return tf32.ENTRY
     return stem.ENTRY if stem.takes(dtype, kh, kw, cin, cout, stride) else FFMA

@@ -15,9 +15,11 @@
 //     (0 past kend or past the operand's edge), and stage(slot, regs).
 //     StridedA / StridedB read a matrix through row and column strides;
 //     a kernel may bring its own (the convolution's im2col gather);
-//   * the join at the end of each K tile: Join::kNone sums all of K in one
-//     FFMA chain (bk is then K); Join::kAdd sums each tile from 0 and adds
-//     it to the accumulator; Join::kTwoSum joins it by 2Sum, written with
+//   * the join at the end of each K tile: Join::kAdd sums each tile from 0
+//     and adds it to the accumulator; Join::kTap does too, for tiles of any
+//     length (the convolution's taps, Cin long): its chunks run on across
+//     tile ends and the join falls between two reduction steps of a chunk;
+//     Join::kTwoSum joins it by 2Sum, written with
 //     __fadd_rn / __fsub_rn, which nvcc neither contracts nor reorders, and
 //     adds the error to a compensation term.
 // The result leaves gemm() once, in `out`; the kernel stores it. No split-K
@@ -40,7 +42,7 @@ constexpr int B_LOADS = BK * BN / THREADS;  // 4
 template <int BM>
 constexpr int A_LOADS = BM * BK / THREADS;  // 8 or 4
 
-enum class Join { kNone, kAdd, kTwoSum };
+enum class Join { kAdd, kTap, kTwoSum };
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -132,20 +134,41 @@ __device__ __forceinline__ void gemm(Tiles<BM>& sm, const LoadA& la, const LoadB
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   // The chunk sequence: K tiles of bk, each cut into ceil(bk / BK) chunks;
-  // the last tile keeps only its chunks that start below K.
-  const int cpt = (bk + BK - 1) / BK;
-  const int k_tiles = (K + bk - 1) / bk;
+  // the last tile keeps only its chunks that start below K. kTap's chunks
+  // cut all of K as one tile.
+  const int cbk = JOIN == Join::kTap ? K : bk;  // the tiles chunks do not cross
+  const int cpt = (cbk + BK - 1) / BK;
+  const int k_tiles = (K + cbk - 1) / cbk;
   const int n_chunks =
-      k_tiles == 0 ? 0 : (k_tiles - 1) * cpt + (K - (k_tiles - 1) * bk + BK - 1) / BK;
+      k_tiles == 0 ? 0 : (k_tiles - 1) * cpt + (K - (k_tiles - 1) * cbk + BK - 1) / BK;
 
   float ra[A_LOADS<BM>], rb[B_LOADS];
-  int kc0 = 0, tile_end = min(bk, K);  // the next chunk to load starts at kc0
+  int kc0 = 0, tile_end = min(cbk, K);  // the next chunk to load starts at kc0
   auto load = [&]() {  // the next chunk from device memory into registers
     const int kend = min(kc0 + BK, tile_end);
     la.load(ra, kc0, kend);
     lb.load(rb, kc0, kend);
     kc0 = kend;
-    if (kc0 == tile_end) tile_end = min(tile_end + bk, K);
+    if (kc0 == tile_end) tile_end = min(tile_end + cbk, K);
+  };
+  auto join = [&](float (&acc_)[TM][TN], float (&comp_)[TM][TN], float (&prod_)[TM][TN]) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float p = prod_[i][j];
+        if constexpr (JOIN == Join::kTwoSum) {  // acc + p = s + e exactly
+          const float s = __fadd_rn(acc_[i][j], p);
+          const float bp = __fsub_rn(s, acc_[i][j]);
+          const float ap = __fsub_rn(s, bp);
+          const float e = __fadd_rn(__fsub_rn(acc_[i][j], ap), __fsub_rn(p, bp));
+          acc_[i][j] = s;
+          comp_[i][j] = __fadd_rn(comp_[i][j], e);
+        } else {
+          acc_[i][j] = __fadd_rn(acc_[i][j], p);
+        }
+        prod_[i][j] = 0.f;
+      }
   };
   auto stage = [&](int slot) {  // registers into shared memory
     la.stage(sm.a[slot], ra);
@@ -163,6 +186,7 @@ __device__ __forceinline__ void gemm(Tiles<BM>& sm, const LoadA& la, const LoadB
     stage(0);
   }
   __syncthreads();
+  int tap_left = bk;  // kTap: reduction steps left in the current tile
   for (int c = 0, jc = 0; c < n_chunks; ++c) {  // jc: chunk c within its K tile
     const int cur = c & 1;
     if (c + 1 < n_chunks) load();  // chunk c + 1, in flight while chunk c is summed
@@ -180,29 +204,15 @@ __device__ __forceinline__ void gemm(Tiles<BM>& sm, const LoadA& la, const LoadB
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) prod[i][j] = fmaf(a[i], b[j], prod[i][j]);
-    }
-    if constexpr (JOIN != Join::kNone) {
-      if (jc == cpt - 1 || c + 1 == n_chunks) {  // the K tile is complete
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            const float p = prod[i][j];
-            if constexpr (JOIN == Join::kTwoSum) {  // acc + p = s + e exactly
-              const float s = __fadd_rn(acc[i][j], p);
-              const float bp = __fsub_rn(s, acc[i][j]);
-              const float ap = __fsub_rn(s, bp);
-              const float e = __fadd_rn(__fsub_rn(acc[i][j], ap), __fsub_rn(p, bp));
-              acc[i][j] = s;
-              comp[i][j] = __fadd_rn(comp[i][j], e);
-            } else {
-              acc[i][j] = __fadd_rn(acc[i][j], p);
-            }
-            prod[i][j] = 0.f;
-          }
+      if constexpr (JOIN == Join::kTap) {  // past K only zeros join, adding nothing
+        if (--tap_left == 0) {
+          join(acc, comp, prod);
+          tap_left = bk;
+        }
       }
-      jc = jc == cpt - 1 ? 0 : jc + 1;
     }
+    if (JOIN != Join::kTap && (jc == cpt - 1 || c + 1 == n_chunks)) join(acc, comp, prod);
+    jc = jc == cpt - 1 ? 0 : jc + 1;
     if (c + 1 < n_chunks) stage(cur ^ 1);
     __syncthreads();  // chunk c+1 is staged, and nobody reads slot `cur` any more
   }
@@ -211,9 +221,7 @@ __device__ __forceinline__ void gemm(Tiles<BM>& sm, const LoadA& la, const LoadB
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j)
-      out[i][j] = JOIN == Join::kNone  ? prod[i][j]
-                  : JOIN == Join::kAdd ? acc[i][j]
-                                       : __fadd_rn(acc[i][j], comp[i][j]);
+      out[i][j] = JOIN == Join::kTwoSum ? __fadd_rn(acc[i][j], comp[i][j]) : acc[i][j];
 }
 
 // C[M, N] = A[M, K] . B[K, N], one CTA per BM x BN block of the contiguous C.

@@ -9,7 +9,9 @@ in the ``p v`` product as two bf16 terms; see
 :mod:`repro_torch.kernels.flash_attention_wgmma`), fp32 at D 64 or 128 to
 the tensor-core kernel ``csrc/flash_attention_tf32.cu`` (both products as
 3xTF32; see :mod:`repro_torch.kernels.flash_attention_tf32`), and D 16, 32
-or 256 to the FFMA kernel ``csrc/flash_attention.cu``. There is no
+or 256 to the FFMA kernel ``csrc/flash_attention.cu``, and fp32 with a
+window below :data:`F32_TF32_MIN_WINDOW` to the FFMA kernel too (rows of so
+few keys read above the plain version's error on 3xTF32). There is no
 fallback from one to another. All compute what the TPU kernel's
 ``_attn_kernel`` computes: scores
 ``(q . k) * sm_scale`` in fp32, the KV-tail, causal and sliding-window masks
@@ -44,6 +46,13 @@ _BQ, _BKV = 64, 64  # the FFMA kernel's tile (BQ, BKV in flash_attention.cu)
 BLOCK_KV = 512  # the plain version's KV block
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the FFMA kernel's template instances
 MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
+# fp32 calls with a window below this go to the FFMA entry: a row sums at most
+# `window` keys, too few to hide 3xTF32's product error (hi + lo keep about 22
+# of 24 bits, lo.lo dropped). The least window of tests/test_torch_attention_tf32.py's
+# sweep at which 3xTF32 reads at most 1.05 x the plain version's RMS error
+# against fp64 both on a long call and on a call as long as its window (whose
+# rows all see fewer keys than the window; 64 reads 1.05-1.08 there, 96 0.96-0.98)
+F32_TF32_MIN_WINDOW = 96
 # C entry -> the library (csrc/<name>.cu) that exports it
 ENTRIES = {
     "flash_attention_f32": "flash_attention",
@@ -108,13 +117,15 @@ def smem_bytes(d: int) -> int:
     return 4 * (_BQ * (d + 1) + _BKV * (d + 1) + _BKV * d + _BQ * (_BKV + 1) + 3 * _BQ)
 
 
-def entry(dtype: torch.dtype, d: int) -> str:
-    """The C entry a CUDA call launches, from q's dtype and the head dim.
+def entry(dtype: torch.dtype, d: int, window: int | None = None) -> str:
+    """The C entry a CUDA call launches, from q's dtype, the head dim and the window.
 
     At D 64 or 128, bf16 -> ``flash_attention_bf16_wgmma`` and fp32 ->
-    ``flash_attention_f32_tf32`` (tensor cores); at D 16, 32 or 256, fp32
-    -> ``flash_attention_f32`` and bf16 -> ``flash_attention_bf16`` (FFMA).
-    Other dtypes raise ``TypeError``, other head dims ``ValueError``.
+    ``flash_attention_f32_tf32`` (tensor cores) unless its window is below
+    :data:`F32_TF32_MIN_WINDOW`; at D 16, 32 or 256, and fp32 with such a
+    window, fp32 -> ``flash_attention_f32`` and bf16 ->
+    ``flash_attention_bf16`` (FFMA). Other dtypes raise ``TypeError``, other
+    head dims ``ValueError``.
     """
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16 q/k/v, got {dtype}")
@@ -122,7 +133,8 @@ def entry(dtype: torch.dtype, d: int) -> str:
         raise ValueError(f"flash_attention kernel: head dim {d} is not one of {HEAD_DIMS}")
     if dtype == torch.bfloat16 and d in wgmma.HEAD_DIMS:
         return wgmma.ENTRY
-    if dtype == torch.float32 and d in tf32.HEAD_DIMS:
+    if dtype == torch.float32 and d in tf32.HEAD_DIMS and (
+            window is None or window >= F32_TF32_MIN_WINDOW):
         return tf32.ENTRY
     return "flash_attention_f32" if dtype == torch.float32 else "flash_attention_bf16"
 
@@ -189,5 +201,5 @@ def flash_attention(
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes q/k/v of one dtype, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
-    return launch(entry(q.dtype, q.shape[3]), q, k, v, causal=causal, window=window,
+    return launch(entry(q.dtype, q.shape[3], window), q, k, v, causal=causal, window=window,
                   sm_scale=sm_scale)

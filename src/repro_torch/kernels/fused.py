@@ -14,16 +14,26 @@ softmax-CE gradient, dW, dX and the SGD / momentum update) planned by
 The TPU kernel walks batch tiles in order on one core: it initialises the
 dW accumulators on grid step 0, accumulates across steps and runs the
 update on the last. CUDA blocks run in no order, so the Hopper design makes
-that ordering explicit with two launches:
+that ordering explicit with two launches: a body kernel computes each
+image's stages and writes its dW partials to ``[B, *param_shape]``; an
+epilogue kernel, one thread per parameter element, sums the B partials in
+image order (deterministic, no float atomics), writes ``d_<p>`` where it
+escapes and applies ``v_new = mu*v + dw``, ``w_new = w - lr*v_new``.
 
-1. the body kernel, one CTA per image, walks a stage table compiled here
-   from the spec. Each stage loops over its per-image output elements;
-   intermediates live in a per-image scratch arena in device memory, and
-   each dW stage writes its per-image partial to ``[B, *param_shape]``;
-2. the epilogue kernel, one thread per parameter element, sums the B
-   partials in a fixed order (deterministic, no float atomics), writes
-   ``d_<p>`` where it escapes and applies ``v_new = mu*v + dw``,
-   ``w_new = w - lr*v_new``.
+The body has two C entries, picked by shape alone (:func:`entry`):
+
+* :data:`SMEM` (``fused_region_smem_launch``): a thread-block cluster of
+  :func:`cluster_size` CTAs per image. Each CTA holds the image's staged
+  inputs, the parameters the body reads and every live intermediate in
+  shared memory, laid out by liveness (:func:`smem_layout`). The convs'
+  forward and dX outputs are split over the cluster and each CTA writes its
+  share into every CTA's shared memory (DSMEM), followed by a cluster
+  barrier; the dW partials are split over the cluster and go to device
+  memory; the cheap stages run whole in every CTA. Each output is summed in
+  one order that does not depend on the cluster size.
+* :data:`ARENA` (``fused_region_launch``): one CTA per image walking the
+  stage table over a per-image scratch arena in device memory, for regions
+  whose shared-memory layout does not fit one block.
 
 The stage table is compiled once per (spec, device) and kept in a device
 int32 tensor; each call only fills a small table of buffer pointers,
@@ -39,7 +49,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ops import LaunchCounter, use_kernel
+from repro_torch.kernels.ops import LaunchCounter, matmul_block_k, use_kernel
 from repro_torch.kernels.streaming import im2col, pad_hw
 from repro_torch.lower.rules import (
     BiasSpec,
@@ -53,6 +63,8 @@ from repro_torch.lower.rules import (
 
 COUNTER = LaunchCounter("fused_region")
 _LIB = "fused_region"
+SMEM = "fused_region_smem_launch"  # C entry: cluster per image, shared memory
+ARENA = "fused_region_launch"  # C entry: CTA per image, device-memory arena
 
 # ---------------------------------------------------------------------------
 # The plain version (a port of _stage_flow / _stage_updates, whole batch)
@@ -250,10 +262,24 @@ OP_BIAS_FWD, OP_BIAS_DW, OP_COPY = 7, 8, 9
 OP_RELU_FWD, OP_RELU_DX = 10, 11
 OP_POOL_FWD, OP_POOL_DX = 12, 13
 OP_XENT_DX = 14
-REC = 16  # ints per body record: op, a, b, out, 12 static ints
+REC = 16  # ints per body record: op, a, b, out, 10 static ints, 0, scratch slot
 EPI_REC = 8  # ints per epilogue record
 MAX_BUFS = 64  # RegionBufs capacity in the kernel source
 BODY_THREADS = 512
+# the shared-memory entry (keep in sync with csrc/fused_region.cu):
+SMEM_THREADS = 512
+MAX_SMEM_STAGES = 48  # body stages it takes (its stage table sits in static shared memory)
+SMEM_STATIC = 4 * (MAX_SMEM_STAGES * REC + 3 * MAX_BUFS) + 8 * MAX_BUFS  # its static bytes
+MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
+CLUSTER_SIZES = (8, 4, 2, 1)
+DW_CHUNK = 32  # a conv-dW sub-sum: whole output rows, at least this many pixels
+# ops whose outputs every CTA needs: split over the cluster, each share
+# written into every CTA's shared memory, then a cluster barrier
+BROADCAST_OPS = frozenset({OP_CONV_FWD, OP_CONV_DX})
+# dW partials: split over the cluster, written to device memory only
+PARTIAL_OPS = frozenset({OP_CONV_DW, OP_MM_DW, OP_BIAS_DW})
+# every other op runs whole in each CTA of the cluster
+STAGED, ESCAPES = 1, 2  # Buffer.mode bits: loaded at the start; also written to device memory
 
 
 @dataclass(frozen=True)
@@ -263,7 +289,8 @@ class Buffer:
     ``kind``: ``"in"`` (a region input), ``"out"`` (a region output),
     ``"scratch"`` (a slot of the per-image arena at ``offset``) or
     ``"partial"`` (per-image dW partials). ``shape`` is per image for
-    batched buffers and whole for resident ones.
+    batched buffers and whole for resident ones. ``slot`` and ``mode`` place
+    it in the shared-memory entry (:func:`smem_layout`).
     """
 
     kind: str
@@ -271,6 +298,8 @@ class Buffer:
     shape: tuple[int, ...]
     batched: bool
     offset: int = 0
+    slot: int = -1  # float offset in the shared-memory entry's layout, -1: none
+    mode: int = 0  # STAGED | ESCAPES
 
     @property
     def numel(self) -> int:
@@ -284,6 +313,8 @@ class CompiledRegion:
     body: list[int]  # n_stages * REC ints
     epilogue: list[int]  # n_params * EPI_REC ints
     arena: int  # scratch floats per image
+    smem: int  # floats of one CTA's shared memory in the SMEM entry
+    live: dict  # slot-holding name -> (first, last) stage, as smem_layout gives it
 
     @property
     def n_stages(self) -> int:
@@ -471,7 +502,92 @@ def compile_region(region, input_shapes: dict) -> CompiledRegion:
         ]
     if len(buffers) > MAX_BUFS:
         raise ValueError(f"{region.label} needs {len(buffers)} buffers > {MAX_BUFS}")
-    return CompiledRegion(region, tuple(buffers), body, epilogue, arena)
+    slots, modes, scratch, smem, live = smem_layout(buffers, body)
+    buffers = [Buffer(b.kind, b.name, b.shape, b.batched, b.offset, slots[i], modes[i])
+               for i, b in enumerate(buffers)]
+    for s_, off in scratch.items():
+        body[s_ * REC + REC - 1] = off
+    return CompiledRegion(region, tuple(buffers), body, epilogue, arena, smem, live)
+
+
+def stage_scratch(rec) -> int:
+    """Floats of CTA-local scratch a stage of the SMEM entry needs: the conv
+    dW's sub-sums (one per chunk of :func:`dw_rows` output rows and output), the conv dX's
+    copy of w as [tap][co][ci] in rows of Cin + 4, and the matmul forward's
+    slice sums and K-tile sums (one per slice of 8, one per tile, and output)."""
+    if rec[0] == OP_CONV_DW:
+        oh, ow = rec[12], rec[13]
+        return -(-oh // dw_rows(ow)) * math.prod(rec[7:10]) * rec[6]
+    if rec[0] == OP_CONV_DX:
+        return rec[7] * rec[8] * rec[9] * (rec[6] + 4)
+    if rec[0] == OP_MM_FWD:
+        k, n = rec[4], rec[5]
+        bk = matmul_block_k(k)
+        tiles = -(-k // bk)
+        return (tiles * -(-bk // 8) + tiles) * n
+    return 0
+
+
+def dw_rows(ow: int) -> int:
+    """Output rows of one conv-dW sub-sum (``dw_rows`` in the kernel source)."""
+    return max(1, DW_CHUNK // ow)
+
+
+def smem_layout(buffers, body):
+    """Lay the SMEM entry's shared memory out by liveness.
+
+    Slots go to the staged inputs (those the body reads), every intermediate
+    and every batched output (a batched output is also written to device
+    memory, ``ESCAPES``), and one CTA-local scratch per stage that needs it
+    (:func:`stage_scratch`). Each holds an interval of stages: an input from
+    0, an output from the stage that writes it, to its last reader. An
+    output written into every CTA (:data:`BROADCAST_OPS`) holds from the
+    stage after the previous cluster barrier, since a CTA may still be in
+    any stage since then when a peer writes it. Two slots share memory only
+    if their intervals are disjoint; each is placed first fit at a multiple
+    of 4 floats. Returns (slot per buffer, mode per buffer, scratch offset
+    per stage, floats in all, name -> interval).
+    """
+    n_st = len(body) // REC
+    recs = [body[i * REC:(i + 1) * REC] for i in range(n_st)]
+    first, last, modes = {}, {}, [0] * len(buffers)
+    for s, r in enumerate(recs):
+        for i in (r[1], r[2]):
+            if i >= 0:
+                last[i] = s
+                if buffers[i].kind == "in":
+                    first[i] = 0
+                    modes[i] |= STAGED
+        out = r[3]
+        if buffers[out].kind == "partial":
+            continue
+        if r[0] in BROADCAST_OPS:
+            barrier = max((u for u in range(s) if recs[u][0] in BROADCAST_OPS), default=-1)
+            first[out] = barrier + 1
+        else:
+            first[out] = s
+        last.setdefault(out, s)
+        if buffers[out].kind == "out":
+            modes[out] |= ESCAPES
+    items = [(first[i], last[i], buffers[i].numel, ("buf", i)) for i in first]
+    items += [(s, s, stage_scratch(r), ("scratch", s)) for s, r in enumerate(recs)
+              if stage_scratch(r)]
+    placed, where = [], {}
+    for lo, hi, size, key in sorted(items, key=lambda t: (t[0], t[3])):
+        busy = sorted((o, o + n) for a, b, o, n in placed if a <= hi and lo <= b)
+        off = 0
+        for o0, o1 in busy:
+            if off + size <= o0:
+                break
+            off = max(off, -(-o1 // 4) * 4)
+        placed.append((lo, hi, off, size))
+        where[key] = off
+    slots = [where.get(("buf", i), -1) for i in range(len(buffers))]
+    scratch = {s: off for (kind, s), off in where.items() if kind == "scratch"}
+    total = max((o + n for _, _, o, n in placed), default=0)
+    live = {buffers[i].name: (first[i], last[i]) for i in first}
+    live.update({f"scratch@{s}": (s, s) for s in scratch})
+    return slots, modes, scratch, total, live
 
 
 # ---------------------------------------------------------------------------
@@ -479,18 +595,53 @@ def compile_region(region, input_shapes: dict) -> CompiledRegion:
 # ---------------------------------------------------------------------------
 
 
-def _entry():
-    fn = build.library(_LIB).fused_region_launch
+def _fn(name: str):
+    fn = getattr(build.library(_LIB), name)
     if fn.argtypes is None:
-        fn.argtypes = [
+        types = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # body table, stages, threads
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # epilogue table, params, max numel
             ctypes.c_int, ctypes.c_float, ctypes.c_float,  # batch, lr, momentum
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,  # nbuf, ptrs, strides
-            ctypes.c_void_p,  # stream
         ]
+        if name == SMEM:  # cluster size, shared bytes, slots, numels, modes
+            types += [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+        fn.argtypes = types + [ctypes.c_void_p]  # stream
         fn.restype = ctypes.c_int
     return fn
+
+
+def entry(compiled: CompiledRegion) -> str:
+    """The C entry a CUDA region launches, by shape alone: :data:`SMEM` where
+    its shared-memory layout fits one block (and it has at most
+    :data:`MAX_SMEM_STAGES` body stages), else :data:`ARENA`."""
+    fits = (4 * compiled.smem + SMEM_STATIC <= MAX_SMEM
+            and compiled.n_stages <= MAX_SMEM_STAGES)
+    return SMEM if fits else ARENA
+
+
+def cluster_size(batch: int, active: dict[int, int]) -> int:
+    """CTAs per image on the SMEM entry: the largest of 8, 4, 2, 1 whose
+    clusters for the whole batch run at once. ``active`` maps a cluster size
+    to how many such clusters the device runs at once
+    (:func:`active_clusters`; a cluster's CTAs share one GPC, so at most
+    SMs // size: B * C <= 132 on an H100)."""
+    return next(c for c in CLUSTER_SIZES if c == 1 or batch <= active[c])
+
+
+def active_clusters(smem_bytes: int, device: torch.device) -> dict[int, int]:
+    """Cluster size -> clusters of the SMEM entry the device runs at once."""
+    fn = build.library(_LIB).fused_region_smem_max_clusters
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = {}
+    with torch.cuda.device(device):
+        for c in CLUSTER_SIZES[:-1]:
+            n = ctypes.c_int(0)
+            build.check(_LIB, fn(c, smem_bytes, SMEM_THREADS, ctypes.byref(n)),
+                        "fused_region_smem_max_clusters")
+            out[c] = n.value
+    return out
 
 
 class RegionKernel:
@@ -501,14 +652,42 @@ class RegionKernel:
         self.device = device
         self.body = torch.tensor(compiled.body or [0], dtype=torch.int32, device=device)
         self.epilogue = torch.tensor(compiled.epilogue or [0], dtype=torch.int32, device=device)
+        self.entry = entry(compiled)
+        self.cluster = (cluster_size(compiled.region.batch,
+                                     active_clusters(4 * compiled.smem, device))
+                        if self.entry == SMEM else 1)
+        # what each launch passes that does not change from call to call
+        bufs = compiled.buffers
+        n = len(bufs)
+        self.strides = (ctypes.c_longlong * n)(
+            *(compiled.arena if b.kind == "scratch" else (b.numel if b.batched else 0)
+              for b in bufs))
+        self.smem_args = [(ctypes.c_int * n)(*(b.slot for b in bufs)),
+                          (ctypes.c_int * n)(*(b.numel for b in bufs)),
+                          (ctypes.c_int * n)(*(b.mode for b in bufs))]
 
-    def __call__(self, inputs: dict) -> dict:
+    def __call__(self, inputs: dict, *, name: str | None = None,
+                 cluster: int | None = None) -> dict:
+        """Run the region; ``name`` forces a C entry (the arena entry takes
+        every region; SMEM raises where the layout does not fit) and
+        ``cluster`` the SMEM entry's cluster size (1, 2, 4 or 8)."""
         c = self.compiled
         region = c.region
         B = region.batch
         dev = self.device
-        keep, ptrs, strides, outs = [], [], [], {}
-        arena = torch.empty((B, max(c.arena, 1)), dtype=torch.float32, device=dev)
+        name = name or self.entry
+        if name == SMEM and self.entry != SMEM:
+            raise ValueError(f"{region.label}: {c.n_stages} stages and a shared-memory layout "
+                             f"of {4 * c.smem} + {SMEM_STATIC} bytes do not fit {SMEM}; only "
+                             f"{ARENA} runs it")
+        if name not in (SMEM, ARENA):
+            raise ValueError(f"fused region: no C entry {name!r}; entries are {SMEM}, {ARENA}")
+        cluster = cluster or self.cluster
+        if cluster not in CLUSTER_SIZES:
+            raise ValueError(f"cluster size {cluster} is not one of {CLUSTER_SIZES}")
+        keep, ptrs, outs = [], [], {}
+        arena = (torch.empty((B, max(c.arena, 1)), dtype=torch.float32, device=dev)
+                 if name == ARENA else None)
         for buf in c.buffers:
             if buf.kind == "in":
                 t = inputs[buf.name]
@@ -522,7 +701,7 @@ class RegionKernel:
                 ptr = t.data_ptr()
             elif buf.kind == "scratch":
                 t = None
-                ptr = arena.data_ptr() + 4 * buf.offset
+                ptr = arena.data_ptr() + 4 * buf.offset if arena is not None else 0
             else:
                 shape = ((B,) + buf.shape) if buf.batched else buf.shape
                 t = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -531,17 +710,19 @@ class RegionKernel:
                     outs[buf.name] = t
             keep.append(t)
             ptrs.append(ptr)
-            strides.append(c.arena if buf.kind == "scratch" else (buf.numel if buf.batched else 0))
         n = len(ptrs)
-        code = _entry()(
-            self.body.data_ptr(), c.n_stages, BODY_THREADS,
+        args = [
+            self.body.data_ptr(), c.n_stages, SMEM_THREADS if name == SMEM else BODY_THREADS,
             self.epilogue.data_ptr(), c.n_params, c.max_param_numel,
             B, float(region.lr), float(region.momentum),
-            n, (ctypes.c_longlong * n)(*ptrs), (ctypes.c_longlong * n)(*strides),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+            n, (ctypes.c_longlong * n)(*ptrs), self.strides,
+        ]
+        if name == SMEM:
+            args += [cluster, 4 * c.smem, *self.smem_args]
+        code = _fn(name)(*args, torch.cuda.current_stream(dev).cuda_stream)
         build.check(_LIB, code, region.label)
         COUNTER.launches += 1
+        COUNTER.entries[name] = COUNTER.entries.get(name, 0) + 1
         return outs
 
 

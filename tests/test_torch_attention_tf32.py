@@ -47,6 +47,10 @@ RMS_CASES = [
     (1, 2, 2, 256, 256, 128, False, None),
 ]
 RMS_IDS = [f"h{c[1]}/{c[2]}-s{c[3]}-d{c[5]}-{'c' if c[6] else 'nc'}-w{c[7]}" for c in RMS_CASES]
+# the sweep of windows behind fa.F32_TF32_MIN_WINDOW: causal calls with a
+# window, as long as the window (every row sees fewer keys than it) at D 64
+# and 128, and 512 long at D 64
+WINDOW_SWEEP = (16, 32, 64, 96, 128, 256)
 
 
 def _inputs(b, hq, hkv, sq, skv, d, seed, std=0.3):
@@ -80,6 +84,42 @@ def test_rms_gate_passes_three_terms_and_rejects_one(b, hq, hkv, sq, skv, d, cau
     one = _rms(tf32.emulate(q, k, v, terms=1, **kw).double() - ref) / base
     assert three <= MM_RMS  # the gate of chip_smoke.py
     assert one > 100 * MM_RMS  # hi·hi alone keeps about 11 bits of each product
+
+
+def window_ratio(window, s, d, seed=0, terms=3) -> float:
+    """RMS error against the fp64 attention of the 3xTF32 emulation over the
+    plain version's, causal with ``window`` over ``s`` keys, 8 heads."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 8, 8, s, s, d, seed=seed))
+    kw = {"causal": True, "window": window}
+    ref = attention_ref(q, k, v, compute_dtype=torch.float64, **kw)
+    base = _rms(fa.flash_attention_torch(q, k, v, **kw).double() - ref)
+    return _rms(tf32.emulate(q, k, v, terms=terms, **kw).double() - ref) / base
+
+
+def test_f32_tf32_min_window_is_the_least_window_of_the_sweep_inside_the_rms_gate():
+    """F32_TF32_MIN_WINDOW is the least window of the sweep from which on
+    3xTF32 reads at most MM_RMS on calls as long as the window (D 64, 128)
+    and 512 long (D 64); window 64 reads above it where every row is short."""
+    worst = {w: max(window_ratio(w, w, 64), window_ratio(w, w, 128), window_ratio(w, 512, 64))
+             for w in WINDOW_SWEEP}
+    least = min(w for w in worst if all(r <= MM_RMS for w2, r in worst.items() if w2 >= w))
+    assert least == fa.F32_TF32_MIN_WINDOW == 96
+    assert worst[32] > 1.1 and worst[64] > MM_RMS
+    assert window_ratio(32, 512, 64) <= MM_RMS  # a long call hides its short first rows
+    assert window_ratio(32, 32, 64, terms=1) > 100 * MM_RMS  # the 1xTF32 control
+
+
+@pytest.mark.parametrize("d", tf32.HEAD_DIMS)
+def test_short_fp32_windows_go_to_the_ffma_entry(d):
+    """fp32 with a window below F32_TF32_MIN_WINDOW goes to the FFMA entry;
+    no window (the Qwen prefill) and longer windows keep the 3xTF32 entry,
+    bf16 keeps its tensor-core entry at every window."""
+    for window in (1, 32, 64, fa.F32_TF32_MIN_WINDOW - 1):
+        assert fa.entry(torch.float32, d, window) == "flash_attention_f32"
+        assert fa.entry(torch.bfloat16, d, window) == "flash_attention_bf16_wgmma"
+    for window in (None, fa.F32_TF32_MIN_WINDOW, 128, 1024):
+        assert fa.entry(torch.float32, d, window) == tf32.ENTRY
+    assert fa.entry(torch.float32, d) == tf32.ENTRY
 
 
 def test_one_term_also_breaks_the_band():
@@ -184,6 +224,15 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 if __name__ == "__main__":  # the RMS ratios behind the gate, printed
+    for w in WINDOW_SWEEP:
+        print(f"sweep window {w}: RMS vs fp64 over the plain version's, S = window "
+              f"D 64 {window_ratio(w, w, 64):.4f}, D 128 {window_ratio(w, w, 128):.4f}; "
+              f"S 512 D 64 {window_ratio(w, 512, 64):.4f}")
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 8, 8, 512, 512, 64, seed=0))
+    ref = attention_ref(q, k, v, compute_dtype=torch.float64)
+    em, pl = tf32.emulate(q, k, v).double() - ref, fa.flash_attention_torch(q, k, v).double() - ref
+    print(f"a long causal call's first 32 rows (they see <= 32 keys, still on 3xTF32): "
+          f"{_rms(em[:, :, :32]) / _rms(pl[:, :, :32]):.4f}")
     for case in RMS_CASES:
         *shape, causal, window = case
         q, k, v = (torch.from_numpy(a) for a in _inputs(*shape, seed=11))

@@ -46,8 +46,17 @@ CASES = [
 ]
 # the RMS gate holds at L0's long sums (K = 147); at K 27 / 45 3xTF32 reads
 # above the plain version (about 1.4x): a short sum does not hide the
-# product error of 3xTF32 (lo.lo dropped), as the tf32 attention showed
+# product error of 3xTF32 (lo.lo dropped), as the tf32 attention showed, so
+# fp32 below conv2d.F32_TF32_MIN_K goes to the FFMA entry
 L0_CASES = [(2, 40, 40, 3, 7, 64, 2), (1, 45, 45, 3, 7, 128, 2)]
+# the sweep of K behind conv2d.F32_TF32_MIN_K: (kh, kw, Cin, emulation) on
+# 2 x 24 x 24 planes (12 x 12 at Cin >= 32), Cout 64, stride 1. The Cin-3
+# stem at growing taps, and the 3xTF32 wide conv at 1 x 1 and 3 x 3
+K_SWEEP = [(3, 3, 3, stem), (3, 5, 3, stem), (3, 7, 3, stem), (5, 5, 3, stem),
+           (5, 7, 3, stem), (7, 7, 3, stem), (7, 9, 3, stem), (9, 9, 3, stem),
+           (1, 1, 32, tf32), (1, 1, 64, tf32), (1, 1, 96, tf32), (1, 1, 128, tf32),
+           (3, 3, 32, tf32)]
+SWEEP_SEEDS = (0, 1)
 
 
 def _operands(n, h, w, cin, k, cout, seed, dtype=torch.float32):
@@ -59,6 +68,36 @@ def _operands(n, h, w, cin, k, cout, seed, dtype=torch.float32):
 
 def _rms(x) -> float:
     return float(x.double().square().mean().sqrt())
+
+
+def sweep_ratio(kh, kw, cin, mod, seed, terms=3) -> float:
+    """RMS error against the fp64 conv of ``mod.emulate`` over the plain version's."""
+    hw = 12 if cin >= 32 else 24
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(2, hw, hw, cin).astype(np.float32))
+    wt = torch.from_numpy((rng.randn(kh, kw, cin, 64) * 0.2).astype(np.float32))
+    ref = conv2d_ref(x.double(), wt.double())
+    base = _rms(conv2d.conv2d_ntx_torch(x, wt).double() - ref)
+    return _rms(mod.emulate(x, wt, terms=terms).double() - ref) / base
+
+
+def ffma_order(x, w, per_tap: bool):
+    """fp32 FMAs over K = (u, v, ci) in order, each rounded once: one chain over
+    all of K, or each tap's Cin products from zero, then added tap by tap (the
+    FFMA kernel's order since it sums one K tile per tap)."""
+    kh, kw, cin, cout = w.shape
+    a = stem._im2col(x.float(), kh, kw, 1).double()
+    b = w.reshape(-1, cout).double()
+    acc = torch.zeros(*a.shape[:-1], cout)
+    tap = torch.zeros_like(acc)
+    for r in range(a.shape[-1]):
+        if per_tap:
+            tap = (tap.double() + a[..., r:r + 1] * b[r]).float()
+            if (r + 1) % cin == 0:
+                acc, tap = acc + tap, torch.zeros_like(acc)
+        else:
+            acc = (acc.double() + a[..., r:r + 1] * b[r]).float()
+    return acc
 
 
 def _per_tap_bf16(x, w, stride):
@@ -154,6 +193,46 @@ def test_emulation_reads_values_not_layout_and_refuses_other_term_counts():
         stem.emulate(x, wt, stride=2, terms=2)
 
 
+def test_f32_tf32_min_k_is_the_least_k_of_the_sweep_inside_the_rms_gate():
+    """F32_TF32_MIN_K is the least K of the sweep from which on every point, of
+    both fp32 tensor-core entries, reads at most MM_RMS x the plain version's
+    RMS error against fp64 (on two seeds); the stem's last K below it reads above."""
+    worst: dict[int, float] = {}
+    for kh, kw, cin, mod in K_SWEEP:
+        k = kh * kw * cin
+        r = max(sweep_ratio(kh, kw, cin, mod, seed) for seed in SWEEP_SEEDS)
+        worst[k] = max(worst.get(k, 0.0), r)
+    least = min(k for k in worst if all(r <= MM_RMS for k2, r in worst.items() if k2 >= k))
+    assert least == conv2d.F32_TF32_MIN_K == 96
+    assert worst[27] > 1.3 and worst[45] > 1.15  # 3 x 3 and 3 x 5 stems
+    assert worst[75] > MM_RMS >= worst[96]
+
+
+@pytest.mark.parametrize("kh,kw,cin,cout,stride", [
+    (3, 3, 3, 64, 1), (3, 3, 5, 64, 2), (3, 5, 3, 64, 1), (5, 5, 3, 64, 1), (1, 1, 32, 64, 1),
+    (1, 1, 64, 192, 1),
+], ids=["K27", "K45-cin5", "K45-cin3", "K75", "1x1-cin32", "1x1-cin64"])
+def test_short_fp32_sums_go_to_the_ffma_entry(kh, kw, cin, cout, stride):
+    """fp32 with K below F32_TF32_MIN_K leaves both tensor-core entries (their
+    shape rules still take it); bf16 keeps its routes."""
+    assert kh * kw * cin < conv2d.F32_TF32_MIN_K
+    assert stem.takes(torch.float32, kh, kw, cin, cout, stride) or tf32.takes(
+        torch.float32, cin, cout)
+    assert conv2d.entry(torch.float32, cin, cout, kh, kw, stride) == conv2d.FFMA
+    bf16 = wgmma.ENTRY if wgmma.takes(torch.bfloat16, cin, cout) else stem.ENTRY
+    assert conv2d.entry(torch.bfloat16, cin, cout, kh, kw, stride) == bf16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_googlenet_layers_keep_their_tensor_core_entries(dtype):
+    """The main path's convs (GoogLeNet L0-L3) keep their routes in both dtypes."""
+    wide = wgmma.ENTRY if dtype == torch.bfloat16 else tf32.ENTRY
+    for (kh, cin, cout, stride), want in (((7, 3, 64, 2), stem.ENTRY), ((3, 64, 192, 1), wide),
+                                          ((1, 256, 64, 1), wide), ((1, 512, 192, 1), wide)):
+        assert kh * kh * cin >= conv2d.F32_TF32_MIN_K
+        assert conv2d.entry(dtype, cin, cout, kh, kh, stride) == want
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_entry_sends_the_stem_to_its_kernel(dtype):
     kh, kw, cin, cout, stride = L0
@@ -202,6 +281,22 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 if __name__ == "__main__":  # the gates' readings, printed
+    for kh, kw, cin, mod in K_SWEEP:
+        print(f"sweep K {kh * kw * cin} ({kh} x {kw} x {cin}, {mod.__name__.split('.')[-1]}): "
+              f"RMS vs fp64 over the plain version's "
+              f"{[round(sweep_ratio(kh, kw, cin, mod, s), 4) for s in SWEEP_SEEDS]}")
+    for kh, kw, cin in ((3, 3, 3), (3, 3, 5), (7, 7, 3), (3, 3, 16)):  # the FFMA conv's order
+        rng = np.random.RandomState(0)
+        x = torch.from_numpy(rng.randn(2, 20, 20, cin).astype(np.float32))
+        wt = torch.from_numpy((rng.randn(kh, kw, cin, 64) * 0.2).astype(np.float32))
+        ref = conv2d_ref(x.double(), wt.double())
+        base = _rms(conv2d.conv2d_ntx_torch(x, wt).double() - ref)
+        print(f"FFMA order at {kh} x {kw} x {cin}: RMS vs fp64 over the plain version's, one "
+              f"chain over K {_rms(ffma_order(x, wt, False).double() - ref) / base:.4f}, per tap "
+              f"{_rms(ffma_order(x, wt, True).double() - ref) / base:.4f}")
+    for kh, kw, cin in ((3, 3, 8), (3, 3, 16), (3, 7, 8)):  # stems past the threshold, few taps
+        print(f"remainder {kh} x {kw} x {cin} (K {kh * kw * cin}): "
+              f"{[round(sweep_ratio(kh, kw, cin, stem, s), 4) for s in SWEEP_SEEDS]}")
     for case in CASES:
         n, h, w, cin, k, cout, stride = case
         x, wt = _operands(*case[:6], seed=3 + h)

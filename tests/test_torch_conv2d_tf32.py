@@ -114,19 +114,38 @@ def test_emulation_does_not_depend_on_tile_h_and_refuses_other_term_counts():
 
 # channel counts the 3xTF32 kernel does not take go to the stem kernel
 # (csrc/conv2d_ntx_stem.cu) where kh*kw*Cin <= 256 and Cout is a multiple of
-# 64 (L0's 7 x 7 x 3; Cin 48 at 1 x 1), else to FFMA
-@pytest.mark.parametrize("cin,cout,want", [
-    (64, 192, tf32.ENTRY), (256, 64, tf32.ENTRY), (512, 192, tf32.ENTRY), (32, 64, tf32.ENTRY),
-    (96, 128, tf32.ENTRY), (3, 64, stem.ENTRY), (48, 64, stem.ENTRY), (64, 100, conv2d.FFMA),
-    (64, 32, conv2d.FFMA),
-], ids=["L1", "L2", "L3", "cin32", "cin96", "L0", "cin48", "cout100", "cout32"])
-def test_entry_sends_fp32_by_channels(cin, cout, want):
-    k = 7 if cin == 3 else 1  # L0's taps
-    assert conv2d.entry(torch.float32, cin, cout, k, k, 2 if cin == 3 else 1) == want
-    assert tf32.takes(torch.float32, cin, cout) == (want == tf32.ENTRY)
+# 64 (L0's 7 x 7 x 3; Cin 48 at 2 x 2), else to FFMA; fp32 with K =
+# kh*kw*Cin below conv2d.F32_TF32_MIN_K (1 x 1 at Cin 32 or 64) to FFMA too
+@pytest.mark.parametrize("cin,cout,k,want", [
+    (64, 192, 3, tf32.ENTRY), (256, 64, 1, tf32.ENTRY), (512, 192, 1, tf32.ENTRY),
+    (32, 64, 3, tf32.ENTRY), (96, 128, 1, tf32.ENTRY), (3, 64, 7, stem.ENTRY),
+    (48, 64, 2, stem.ENTRY), (64, 100, 3, conv2d.FFMA), (64, 32, 3, conv2d.FFMA),
+    (32, 64, 1, conv2d.FFMA), (64, 64, 1, conv2d.FFMA),
+], ids=["L1", "L2", "L3", "cin32", "cin96", "L0", "cin48", "cout100", "cout32",
+        "1x1-cin32", "1x1-cin64"])
+def test_entry_sends_fp32_by_channels(cin, cout, k, want):
+    stride = 2 if cin == 3 else 1
+    assert conv2d.entry(torch.float32, cin, cout, k, k, stride) == want
+    short = k * k * cin < conv2d.F32_TF32_MIN_K
+    assert tf32.takes(torch.float32, cin, cout) == (want == tf32.ENTRY or (
+        short and cin % tf32.CIN_STEP == 0 and cout % tf32.COUT_STEP == 0))
     assert not tf32.takes(torch.bfloat16, cin, cout)
     assert conv2d.ENTRIES[want] == {tf32.ENTRY: tf32.LIB, stem.ENTRY: stem.LIB}.get(
         want, "conv2d_ntx")
+
+
+def test_the_sweep_of_the_wide_entry_reads_inside_the_rms_gate():
+    """The 3xTF32 wide conv's points of the K sweep (1 x 1 at Cin 32-128, 3 x 3
+    at Cin 32) all read at most MM_RMS in emulation: its short 1 x 1 convs go
+    to FFMA because the threshold is shared with the stem, whose K 75 reads
+    above the gate."""
+    from test_torch_conv2d_stem import K_SWEEP, SWEEP_SEEDS, sweep_ratio
+
+    points = [(kh, kw, cin) for kh, kw, cin, mod in K_SWEEP if mod is tf32]
+    assert len(points) == 5
+    for kh, kw, cin in points:
+        assert max(sweep_ratio(kh, kw, cin, tf32, s) for s in SWEEP_SEEDS) <= MM_RMS
+    assert sweep_ratio(1, 1, 32, tf32, 0, terms=1) > 100 * MM_RMS  # the 1xTF32 control
 
 
 @pytest.mark.parametrize("cout", [64, 128, 192, 256, 384])

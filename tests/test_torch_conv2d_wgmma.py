@@ -76,7 +76,8 @@ def _staged(x, w, stride, chunk, *, round_bf16=False):
 ], ids=["f32-L1", "f32-L0", "bf16-L1", "bf16-L2", "bf16-L3", "bf16-128", "bf16-L0",
         "bf16-cin96", "bf16-cout100"])
 def test_entry_follows_dtype_and_channels(dtype, cin, cout, want):
-    k, stride = (7, 2) if cin == 3 else (1, 1)  # L0's taps
+    # L0's and L1's taps (fp32 1 x 1 at Cin 64 is a short sum: FFMA)
+    k, stride = (7, 2) if cin == 3 else (3, 1) if (cin, cout) == (64, 192) else (1, 1)
     assert conv2d.entry(dtype, cin, cout, k, k, stride) == want
     lib = {wgmma.ENTRY: wgmma.LIB, conv2d_ntx_tf32.ENTRY: conv2d_ntx_tf32.LIB,
            conv2d_ntx_stem.ENTRY: conv2d_ntx_stem.LIB}.get(want, "conv2d_ntx")

@@ -9,6 +9,10 @@
   (one image at a time, per-image scratch arena, per-image dW partials,
   fixed-order epilogue) must reproduce ``region_torch``. The CUDA kernel
   itself runs only on the card (tests/test_torch_kernels_cuda.py).
+* the shared-memory entry's layout (no two live buffers share a slot) and
+  its cluster split, emulated CTA by CTA with each CTA's own shared memory
+  (C 1, 2, 4 and 8 give the same results, those of ``region_torch``), and
+  the route by shape.
 * maxpool ties route the gradient to the first maximal tap, exactly.
 """
 
@@ -23,6 +27,7 @@ from repro.lower import lower_training_step
 from repro.lower import paper_cnn_graph as jax_paper_cnn_graph
 from repro.lower import plan_fusion as jax_plan_fusion
 from repro_torch.kernels import fused
+from repro_torch.kernels.ops import matmul_block_k
 from repro_torch.lower import MaxPool2dSpec, RegionSpec, Stage, paper_cnn_graph, plan_fusion
 from repro_torch.lower.executors import _plan_callable
 
@@ -57,6 +62,13 @@ def test_plan_matches_jax_fuser(batch, img):
     assert tplan.fallback_steps == jplan.fallback_steps
     assert tplan.n_regions == jplan.n_regions
     assert bool(spilled) == (img == 32)  # the NTX TCDM model spills at img 32
+
+
+def test_the_card_tests_spill_set_is_the_jax_lowerings():
+    from test_torch_kernels_cuda import SPILLED_16_32
+
+    _, _, spilled = _plans(16, 32)
+    assert set(spilled) == set(SPILLED_16_32)
 
 
 @pytest.mark.parametrize("batch", [8, 64])
@@ -176,6 +188,43 @@ def _pool_dx(x, g, r):
     return dx.reshape(OH, OW, C, K, K).transpose(0, 3, 1, 4, 2).ravel()
 
 
+def _one_stage(r, a, w):
+    """One image's outputs of one stage record, from its operands."""
+    op = r[0]
+    if op == fused.OP_CONV_FWD:
+        return _conv_cols(a, r) @ w.reshape(-1, r[9])
+    elif op == fused.OP_CONV_DW:
+        return _conv_cols(a, r).T @ w.reshape(-1, r[9])
+    elif op == fused.OP_CONV_DX:
+        return _conv_dx(a, w, r)
+    elif op == fused.OP_MM_FWD:
+        return a[:r[4]] @ w.reshape(r[4], r[5])
+    elif op == fused.OP_MM_DW:
+        return np.outer(a[:r[4]], w[:r[5]])
+    elif op == fused.OP_MM_DX:
+        return w.reshape(r[4], r[5]) @ a[:r[5]]
+    elif op == fused.OP_BIAS_FWD:
+        return a[:r[4]] + np.tile(w[:r[5]], r[4] // r[5])
+    elif op == fused.OP_BIAS_DW:
+        return a[:r[4]].reshape(-1, r[5]).sum(axis=0)
+    elif op == fused.OP_COPY:
+        return a[:r[4]]
+    elif op == fused.OP_RELU_FWD:
+        return np.maximum(a[:r[4]], 0.0)
+    elif op == fused.OP_RELU_DX:
+        return np.where(a[:r[4]] > 0, w[:r[4]], 0.0)
+    elif op == fused.OP_POOL_FWD:
+        H, W, C, K, OH, OW = r[4:10]
+        return a.reshape(OH, K, OW, K, C).max(axis=(1, 3))
+    elif op == fused.OP_POOL_DX:
+        return _pool_dx(a, w, r)
+    elif op == fused.OP_XENT_DX:
+        e = np.exp(a[:r[4]] - a[:r[4]].max())
+        return (e / e.sum() - w[:r[4]]) / r[5]
+    else:
+        raise AssertionError(f"unknown op {op}")
+
+
 def _emulate(compiled, ins):
     """Run the body and epilogue tables on numpy buffers, one image at a time."""
     region = compiled.region
@@ -207,46 +256,22 @@ def _emulate(compiled, ins):
             a = view(r[1], b) if r[1] >= 0 else None
             w = view(r[2], b) if r[2] >= 0 else None
             out = view(r[3], b)
-            if op == fused.OP_CONV_FWD:
-                res = _conv_cols(a, r) @ w.reshape(-1, r[9])
-            elif op == fused.OP_CONV_DW:
-                res = _conv_cols(a, r).T @ w.reshape(-1, r[9])
-            elif op == fused.OP_CONV_DX:
-                res = _conv_dx(a, w, r)
-            elif op == fused.OP_MM_FWD:
-                res = a[:r[4]] @ w.reshape(r[4], r[5])
-            elif op == fused.OP_MM_DW:
-                res = np.outer(a[:r[4]], w[:r[5]])
-            elif op == fused.OP_MM_DX:
-                res = w.reshape(r[4], r[5]) @ a[:r[5]]
-            elif op == fused.OP_BIAS_FWD:
-                res = a[:r[4]] + np.tile(w[:r[5]], r[4] // r[5])
-            elif op == fused.OP_BIAS_DW:
-                res = a[:r[4]].reshape(-1, r[5]).sum(axis=0)
-            elif op == fused.OP_COPY:
-                res = a[:r[4]]
-            elif op == fused.OP_RELU_FWD:
-                res = np.maximum(a[:r[4]], 0.0)
-            elif op == fused.OP_RELU_DX:
-                res = np.where(a[:r[4]] > 0, w[:r[4]], 0.0)
-            elif op == fused.OP_POOL_FWD:
-                H, W, C, K, OH, OW = r[4:10]
-                res = a.reshape(OH, K, OW, K, C).max(axis=(1, 3))
-            elif op == fused.OP_POOL_DX:
-                res = _pool_dx(a, w, r)
-            elif op == fused.OP_XENT_DX:
-                e = np.exp(a[:r[4]] - a[:r[4]].max())
-                res = (e / e.sum() - w[:r[4]]) / r[5]
-            else:
-                raise AssertionError(f"unknown op {op}")
+            res = _one_stage(r, a, w)
             out[:] = np.asarray(res, np.float32).ravel()
 
+    _emulate_epilogue(compiled, store, view)
+    return outs
+
+
+def _emulate_epilogue(compiled, store, view):
+    """The epilogue table: dW partials summed in image order, the update."""
+    region = compiled.region
     for p in range(compiled.n_params):
         numel, partial, d_in, d_out, wi, vi, w_new, v_new = compiled.epilogue[
             p * fused.EPI_REC:(p + 1) * fused.EPI_REC]
         if partial >= 0:
             dw = np.zeros(numel, np.float32)
-            for b in range(B):
+            for b in range(region.batch):
                 dw += view(partial, b)[:numel]
         else:
             dw = view(d_in, 0)[:numel]
@@ -258,7 +283,6 @@ def _emulate(compiled, ins):
                 vn = np.float32(region.momentum) * view(vi, 0)[:numel] + dw
                 store[v_new][:numel] = vn
             store[w_new][:numel] = view(wi, 0)[:numel] - np.float32(region.lr) * vn
-    return outs
 
 
 def _table_cases():
@@ -288,16 +312,268 @@ def test_stage_tables_reproduce_region_torch(batch, img, region):
                                    rtol=1e-5, atol=1e-6, err_msg=k)
 
 
-def test_full_width_region_scratch_arena_size():
-    graph = paper_cnn_graph(batch=64, img=32)
+def _compiled(batch, img):
+    graph = paper_cnn_graph(batch=batch, img=img)
     (seg,) = plan_fusion(graph).segments
     sh = _edge_shapes(graph)
-    shapes = {n: sh[n] for n, _ in seg.region.inputs}
-    compiled = fused.compile_region(seg.region, shapes)
-    # every intermediate edge of one image (~100 KB), none of the escaping ones
+    return fused.compile_region(seg.region, {n: sh[n] for n, _ in seg.region.inputs})
+
+
+def _live_floats(compiled, stage):
+    """Floats of the intermediates (not the staged inputs, not scratch) that
+    hold a shared-memory slot at ``stage``."""
+    return sum(b.numel for b in compiled.buffers
+               if b.slot >= 0 and b.kind != "in" and
+               compiled.live[b.name][0] <= stage <= compiled.live[b.name][1])
+
+
+def test_full_width_region_scratch_arena_size():
+    compiled = _compiled(64, 32)
+    # the arena entry: every intermediate edge of one image (~100 KB), none of
+    # the escaping ones
     assert 80_000 < 4 * compiled.arena < 120_000
     assert len(compiled.buffers) <= fused.MAX_BUFS
     assert compiled.n_params == 4 and compiled.n_stages == 20
+    # the shared-memory entry: x (12 KB) and the four parameters the body
+    # reads (44 KB) staged, the intermediates laid out by liveness and the
+    # dW sub-sums' scratch, all in one block's shared memory
+    staged = [b for b in compiled.buffers if b.mode & fused.STAGED]
+    assert {b.name for b in staged} == {"x", "onehot", "w_c1", "w_c2", "w_fc", "b_fcb"}
+    assert 4 * sum(b.numel for b in staged) == 56_080
+    assert 4 * compiled.smem == 150_304 <= fused.MAX_SMEM - fused.SMEM_STATIC
+    peak = max(_live_floats(compiled, s) for s in range(compiled.n_stages))
+    # at r2's dX: d_a_r1 (written into every CTA at c2's dX) holds since c2's barrier
+    assert 4 * peak == 57_344 < 4 * compiled.arena
+
+
+# ---------------------------------------------------------------------------
+# The shared-memory entry: layout, cluster split, route
+# ---------------------------------------------------------------------------
+
+
+def _slot_holders(compiled):
+    """(name, first stage, last stage, offset, floats) of every shared-memory slot."""
+    out = [(b.name, *compiled.live[b.name], b.slot, b.numel)
+           for b in compiled.buffers if b.slot >= 0]
+    for st in range(compiled.n_stages):
+        rec = compiled.body[st * fused.REC:(st + 1) * fused.REC]
+        if fused.stage_scratch(rec):
+            out.append((f"scratch@{st}", st, st, rec[-1], fused.stage_scratch(rec)))
+    return out
+
+
+@pytest.mark.parametrize("batch,img,region", _table_cases())
+def test_smem_layout_gives_no_two_live_buffers_one_slot(batch, img, region):
+    graph = paper_cnn_graph(batch=batch, img=img)
+    ins = _region_inputs(region, graph, seed=7)
+    shapes = {n: ins[n].shape[1:] if b else ins[n].shape for n, b in region.inputs}
+    compiled = fused.compile_region(region, shapes)
+    holders = _slot_holders(compiled)
+    read = {i for st in range(compiled.n_stages)
+            for i in compiled.body[st * fused.REC + 1:st * fused.REC + 3] if i >= 0}
+    for i, b in enumerate(compiled.buffers):
+        assert bool(b.mode & fused.STAGED) == (b.kind == "in" and i in read), b.name
+        assert (b.slot >= 0) == (bool(b.mode & fused.STAGED) or b.kind == "scratch"
+                                 or (b.kind == "out" and b.batched)), b.name
+    for name, lo, hi, off, n in holders:
+        assert off % 4 == 0 and 0 <= off and off + n <= compiled.smem, name
+        for name2, lo2, hi2, off2, n2 in holders:
+            if name2 != name and lo <= hi2 and lo2 <= hi:
+                assert off + n <= off2 or off2 + n2 <= off, (name, name2)
+
+
+def _share(n, rank, c):
+    return n * rank // c, n * (rank + 1) // c
+
+
+def _tile_width(tasks, channels, c):
+    for t in (4, 2):
+        if channels % t == 0 and tasks // t // c >= fused.SMEM_THREADS:
+            return t
+    return 1
+
+
+def _column_by_residue(j, w, s):
+    for r in range(s - 1):
+        n = (w - r + s - 1) // s
+        if j < n:
+            return r + j * s
+        j -= n
+    return s - 1 + j * s
+
+
+def _owned(rec, n, rank, c):
+    """Indices of a stage's per-image outputs that CTA ``rank`` computes."""
+    op = rec[0]
+    if op == fused.OP_CONV_FWD:
+        cout = rec[9]
+        t = _tile_width(n, cout, c)
+        lo, hi = _share(n // t, rank, c)
+        return np.arange(lo * t, hi * t)
+    if op == fused.OP_CONV_DX:
+        W, cin, S = rec[5], rec[6], rec[10]
+        t = _tile_width(n, cin, c)
+        lo, hi = _share(n // t, rank, c)
+        tasks = np.arange(lo, hi)
+        q = tasks // (cin // t)
+        cols = np.array([_column_by_residue(j, W, S) for j in q % W], dtype=np.int64)
+        first = ((q // W) * W + cols) * cin + tasks % (cin // t) * t
+        return (first[:, None] + np.arange(t)).ravel()
+    if op == fused.OP_CONV_DW:
+        cout = rec[9]
+        chunks = -(-rec[12] // fused.dw_rows(rec[13]))
+        t = _tile_width(n * chunks, cout, c)
+        lo, hi = _share(n // t, rank, c)
+        return np.arange(lo * t, hi * t)
+    lo, hi = _share(n, rank, c)
+    return np.arange(lo, hi)
+
+
+def _stage_values(rec, a, w, scratch):
+    """One image's outputs of a stage from one CTA's copies; the conv dW
+    sub-sums, the conv dX's copy of w and the matmul slices and tiles pass
+    through the CTA's scratch."""
+    op = rec[0]
+    if op == fused.OP_CONV_DX:
+        kh, kw, cin, cout = rec[7], rec[8], rec[6], rec[9]
+        rows = scratch[:kh * kw * cout * (cin + 4)].reshape(kh * kw, cout, cin + 4)
+        rows[:, :, :cin] = w.reshape(kh * kw, cin, cout).transpose(0, 2, 1)
+        return _conv_dx(a, rows[:, :, :cin].transpose(0, 2, 1), rec)
+    if op == fused.OP_CONV_DW:
+        cols, dy = _conv_cols(a, rec), w.reshape(-1, rec[9])
+        n_out = cols.shape[1] * dy.shape[1]
+        step = fused.dw_rows(rec[13]) * rec[13]  # whole output rows
+        chunks = -(-cols.shape[0] // step)
+        for k in range(chunks):
+            rows = slice(k * step, (k + 1) * step)
+            scratch[k * n_out:(k + 1) * n_out] = (cols[rows].T @ dy[rows]).ravel()
+        total = scratch[:n_out].copy()
+        for k in range(1, chunks):
+            total = total + scratch[k * n_out:(k + 1) * n_out]
+        return total
+    if op == fused.OP_MM_FWD:
+        K, N = rec[4], rec[5]
+        bk = matmul_block_k(K)
+        spt = -(-bk // 8)
+        n_sl = -(-K // bk) * spt
+        for sl in range(n_sl):
+            t = sl // spt
+            k0 = t * bk + sl % spt * 8
+            k1 = min(k0 + 8, (t + 1) * bk, K)
+            scratch[sl * N:(sl + 1) * N] = a[k0:k1] @ w.reshape(K, N)[k0:k1] if k0 < K else 0
+        tiles = n_sl // spt
+        scratch[n_sl * N:(n_sl + tiles) * N] = (
+            scratch[:n_sl * N].reshape(tiles, spt, N).sum(axis=1, dtype=np.float32).ravel())
+        return scratch[n_sl * N:(n_sl + tiles) * N].reshape(tiles, N).sum(axis=0, dtype=np.float32)
+    return None
+
+
+def _emulate_cluster(compiled, ins, c, ahead=False):
+    """The SMEM entry's body, CTA by CTA: each CTA of an image's cluster has
+    its own shared memory; a broadcast stage's share goes into every CTA's,
+    a partial stage's share to device memory, the other stages run whole on
+    the CTA's copy. Between two cluster barriers the CTAs run one after the
+    other (the last first with ``ahead``), so a peer that writes too early
+    into a slot another CTA still reads shows up in the results."""
+    region = compiled.region
+    B = region.batch
+    bufs = compiled.buffers
+    recs = [compiled.body[st * fused.REC:(st + 1) * fused.REC] for st in range(compiled.n_stages)]
+    store, outs = [], {}
+    for buf in bufs:
+        if buf.kind == "in":
+            arr = np.asarray(ins[buf.name], np.float32).reshape(-1)
+        elif buf.kind in ("out", "partial"):
+            arr = np.full((B if buf.batched else 1) * buf.numel, np.nan, np.float32)
+            if buf.kind == "out":
+                outs[buf.name] = arr
+        else:
+            arr = None
+        store.append(arr)
+
+    def view(i, b):
+        buf = bufs[i]
+        return store[i][b * buf.numel:(b + 1) * buf.numel] if buf.batched else store[i]
+
+    epochs, cur = [], []
+    for st, rec in enumerate(recs):
+        cur.append(st)
+        if rec[0] in fused.BROADCAST_OPS:
+            epochs.append(cur)
+            cur = []
+    epochs.append(cur)
+    for b in range(B):
+        sm = [np.full(compiled.smem, np.nan, np.float32) for _ in range(c)]
+        for mem in sm:
+            for i, buf in enumerate(bufs):
+                if buf.mode & fused.STAGED:
+                    mem[buf.slot:buf.slot + buf.numel] = view(i, b)
+        for epoch in epochs:
+            for rank in (range(c - 1, -1, -1) if ahead else range(c)):
+                mem = sm[rank]
+                for st in epoch:
+                    rec = recs[st]
+                    op, oi = rec[0], rec[3]
+                    a, w = (mem[bufs[i].slot:bufs[i].slot + bufs[i].numel] if i >= 0 else None
+                            for i in rec[1:3])
+                    out = bufs[oi]
+                    vals = _stage_values(rec, a, w, mem[rec[-1]:])
+                    if vals is None:  # the arena emulation's math on this CTA's copies
+                        vals = _one_stage(rec, a, w)
+                    vals = np.asarray(vals, np.float32).ravel()
+                    own = _owned(rec, out.numel, rank, c)
+                    if op in fused.BROADCAST_OPS:
+                        for peer in sm:
+                            peer[out.slot + own] = vals[own]
+                    elif op in fused.PARTIAL_OPS:
+                        view(oi, b)[own] = vals[own]
+                        continue
+                    else:
+                        mem[out.slot:out.slot + out.numel] = vals
+                    if out.mode & fused.ESCAPES:
+                        view(oi, b)[own] = vals[own]
+    _emulate_epilogue(compiled, store, view)
+    return outs
+
+
+@pytest.mark.parametrize("batch,img,region", _table_cases())
+def test_cluster_split_gives_the_same_results_for_every_cluster_size(batch, img, region):
+    graph = paper_cnn_graph(batch=batch, img=img)
+    ins = _region_inputs(region, graph, seed=7)
+    shapes = {n: ins[n].shape[1:] if b else ins[n].shape for n, b in region.inputs}
+    compiled = fused.compile_region(region, shapes)
+    want = fused.region_torch(region, {k: torch.from_numpy(v) for k, v in ins.items()})
+    first = None
+    for c in fused.CLUSTER_SIZES:
+        for ahead in (False, True):
+            got = _emulate_cluster(compiled, ins, c, ahead)
+            assert set(got) == set(want)
+            for k, v in want.items():
+                np.testing.assert_allclose(got[k].reshape(v.shape), v.numpy(),
+                                           rtol=1e-5, atol=1e-6, err_msg=f"C {c}: {k}")
+            if first is None:
+                first = got
+            for k in got:
+                np.testing.assert_array_equal(got[k], first[k], err_msg=f"C {c}: {k}")
+
+
+@pytest.mark.parametrize("batch,img,cluster", [(64, 32, 2), (16, 32, 8), (4, 16, 8)])
+def test_shape_route_picks_the_smem_entry(batch, img, cluster):
+    compiled = _compiled(batch, img)
+    assert fused.entry(compiled) == fused.SMEM
+    every_sm = {c: 132 // c for c in (8, 4, 2)}  # B * C <= 132
+    assert fused.cluster_size(batch, every_sm) == cluster and batch * cluster <= 132
+    assert fused.cluster_size(200, every_sm) == 1
+    # the H100 runs 15 clusters of 8 at once at this shared memory: batch 16
+    # takes clusters of 4 (a cluster's CTAs share one GPC)
+    active = {8: 15, 4: 30, 2: 66}
+    assert fused.cluster_size(batch, active) == {64: 2, 16: 4, 4: 8}[batch]
+
+
+def test_shape_route_sends_what_does_not_fit_to_the_arena_entry():
+    compiled = _compiled(8, 64)  # 64 x 64 images: a 64 KB conv output alone
+    assert 4 * compiled.smem > fused.MAX_SMEM
+    assert fused.entry(compiled) == fused.ARENA
 
 
 # ---------------------------------------------------------------------------

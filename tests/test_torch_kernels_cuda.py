@@ -37,6 +37,7 @@ from repro_torch.lower import (
     plan_fusion,
     run_torch,
 )
+from repro_torch.lower.executors import PlanCache, _as_f32, _walk
 
 SHAPES = [(128, 128, 128), (128, 128, 512), (64, 64, 256), (100, 70, 333), (8, 200, 40),
           (16384, 16, 75), (75, 16, 16384)]
@@ -110,6 +111,97 @@ def test_region_kernel_maxpool_ties_exact(cuda_device):
     got = fused.build_region_callable(region, device=cuda_device)(ins)["d_x"]
     want = fused.region_torch(region, ins)["d_x"]
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,img", [(4, 16), (16, 32)])
+def test_region_smem_entry_matches_plain_and_the_arena_entry(cuda_device, batch, img):
+    """The region routes to the shared-memory entry (a cluster per image); it
+    and the arena entry hold region_torch's outputs; the bits are the same run
+    to run and at every forced cluster size."""
+    graph, inputs = _step_inputs(batch, img, cuda_device)
+    (seg,) = plan_fusion(graph).segments
+    ins = {n: inputs[n] for n, _ in seg.region.inputs}
+    kern = fused.region_kernel(seg.region, ins, cuda_device)
+    fused.COUNTER.reset()
+    got = fused.build_region_callable(seg.region, device=cuda_device)(ins)
+    arena = kern(ins, name=fused.ARENA)
+    want = fused.region_torch(seg.region, ins)
+    torch.cuda.synchronize()
+    assert kern.entry == fused.SMEM and kern.cluster in (2, 4, 8)
+    assert fused.COUNTER.entries == {fused.SMEM: 1, fused.ARENA: 1}
+    assert fused.COUNTER.plain_calls == 1
+    for k, v in want.items():
+        torch.testing.assert_close(got[k], v, rtol=1e-5, atol=1e-6, msg=k)
+        torch.testing.assert_close(arena[k], v, rtol=1e-5, atol=1e-6, msg=f"arena {k}")
+    for cluster in (None, 1, 2, 4, 8):
+        again = kern(ins, cluster=cluster)
+        assert all(torch.equal(again[k], got[k]) for k in got), cluster
+
+
+@pytest.mark.cuda
+def test_region_smem_entry_maxpool_ties_exact(cuda_device):
+    spec = MaxPool2dSpec(8, 8, 32)
+    st = Stage(node="p1", pass_="dx", spec=spec, in_edge="x", out_edge="a_p1")
+    region = RegionSpec(stages=(st,), batch=8, lr=0.05, momentum=0.0,
+                        inputs=(("x", True), ("d_a_p1", True)),
+                        outputs=(("d_x", "batched"),))
+    g = torch.Generator(device="cpu").manual_seed(3)
+    ins = {"x": torch.randint(0, 3, (8, 8, 8, 32), generator=g).float().to(cuda_device),
+           "d_a_p1": torch.randn(8, 4, 4, 32, generator=g).to(cuda_device)}
+    kern = fused.region_kernel(region, ins, cuda_device)
+    want = fused.region_torch(region, ins)["d_x"]
+    assert kern.entry == fused.SMEM
+    for name in (fused.SMEM, fused.ARENA):
+        torch.testing.assert_close(kern(ins, name=name)["d_x"], want, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.cuda
+def test_region_smem_entry_refuses_forced_regions_that_do_not_fit(cuda_device):
+    graph, inputs = _step_inputs(2, 64, cuda_device)
+    (seg,) = plan_fusion(graph).segments
+    ins = {n: inputs[n] for n, _ in seg.region.inputs}
+    kern = fused.region_kernel(seg.region, ins, cuda_device)
+    assert kern.entry == fused.ARENA
+    fused.COUNTER.reset()
+    with pytest.raises(ValueError, match="do not fit"):
+        kern(ins, name=fused.SMEM)
+    got = fused.build_region_callable(seg.region, device=cuda_device)(ins)
+    torch.cuda.synchronize()
+    assert fused.COUNTER.entries == {fused.ARENA: 1}
+    want = fused.region_torch(seg.region, ins)
+    for k, v in want.items():
+        torch.testing.assert_close(got[k], v, rtol=1e-5, atol=1e-6, msg=k)
+
+
+# the JAX lowering's spill set for the paper CNN at batch 16, img 32 (held
+# against repro.lower by tests/test_torch_fused.py): planned with it, the
+# fuser cuts the step into three small regions between per-node steps
+SPILLED_16_32 = ("a_r1", "a_r2", "c2.dwb", "c2.dx.dy_pad00", "c2.dx.dy_pad01",
+                 "c2.dx.dy_pad10", "c2.x_pad", "d_a_c1", "d_a_c2", "d_a_f1", "d_a_r1",
+                 "d_a_r2", "p1.mask", "r1.mask", "r2.mask")
+
+
+@pytest.mark.cuda
+def test_spilled_plan_regions_run_on_the_smem_entry(cuda_device):
+    """The JAX-spilled plan's regions (a conv forward whose output escapes,
+    the fc chain with escaping logits and gradient, an update with no body
+    stage) all run on the shared-memory entry, and the step matches the
+    unfused one."""
+    graph, inputs = _step_inputs(16, 32, cuda_device)
+    segments = plan_fusion(graph, spilled=SPILLED_16_32).segments
+    cache = PlanCache()
+    fused.COUNTER.reset()
+    got = _walk(graph, _as_f32(inputs, cuda_device),
+                lambda spec, pass_: cache.get(spec, pass_, cuda_device), segments,
+                keep_grads=True)
+    want = run_torch(graph, inputs, fuse=False, device=cuda_device)
+    torch.cuda.synchronize()
+    assert sum(seg.region is not None for seg in segments) == 3
+    assert fused.COUNTER.entries == {fused.SMEM: 3} and fused.COUNTER.plain_calls == 0
+    assert set(got) == set(want)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6, msg=k)
 
 
 @pytest.mark.cuda
@@ -916,10 +1008,10 @@ def test_conv2d_wgmma_entry_refuses_operands_it_cannot_read(cuda_device):
 
 @pytest.mark.cuda
 def test_conv2d_launches_are_counted_per_entry(cuda_device):
-    """Cin 3 on the stem entry in both dtypes, Cout 100 on the FFMA entry;
-    Cin 64 on the tensor cores, fp32 on the 3xTF32 entry (its split of w
-    counted apart) and bf16 on the bf16 one; the FFMA entry named directly
-    takes bf16 at Cin 64 too."""
+    """Cin 3 at 3 x 3 (K 27) on the stem entry in bf16 and on FFMA in fp32 (a
+    short sum), Cout 100 on the FFMA entry; Cin 64 on the tensor cores, fp32
+    on the 3xTF32 entry (its split of w counted apart) and bf16 on the bf16
+    one; the FFMA entry named directly takes bf16 at Cin 64 too."""
     conv2d.COUNTER.reset()
     for dtype, cin, cout in ((torch.float32, 64, 64), (torch.float32, 3, 64),
                              (torch.bfloat16, 3, 64), (torch.bfloat16, 64, 64),
@@ -928,8 +1020,8 @@ def test_conv2d_launches_are_counted_per_entry(cuda_device):
     x, wt = _conv_inputs(1, 10, 10, 64, 3, 3, 64, 1, torch.bfloat16, cuda_device)
     ffma = conv2d.launch(conv2d.FFMA, x, wt)
     torch.cuda.synchronize()
-    assert conv2d.COUNTER.entries == {conv2d.FFMA: 2, conv_wgmma.ENTRY: 1, conv_tf32.ENTRY: 1,
-                                      conv_tf32.SPLIT: 1, conv_stem.ENTRY: 2}
+    assert conv2d.COUNTER.entries == {conv2d.FFMA: 3, conv_wgmma.ENTRY: 1, conv_tf32.ENTRY: 1,
+                                      conv_tf32.SPLIT: 1, conv_stem.ENTRY: 1}
     assert conv2d.COUNTER.launches == 6
     _conv_close(ffma, conv2d.conv2d_ntx_torch(x, wt))
 
@@ -980,9 +1072,10 @@ def test_tf32_attention_entry_matches_plain(cuda_device, b, hq, hkv, sq, skv, d,
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", attn_tf32.HEAD_DIMS)
 def test_tf32_attention_rows_with_no_visible_key_are_zero(cuda_device, d):
+    """By name: flash_attention sends fp32 with a window of 32 to FFMA."""
     q, k, v = _attn_inputs(1, 4, 2, 256, 64, d, 4, cuda_device)
     flash_attention.COUNTER.reset()
-    got = flash_attention.flash_attention(q, k, v, causal=True, window=32)
+    got = flash_attention.launch(attn_tf32.ENTRY, q, k, v, causal=True, window=32)
     torch.cuda.synchronize()
     assert flash_attention.COUNTER.entries == {attn_tf32.ENTRY: 1}
     assert not bool(got[:, :, 95:].any())
@@ -1087,15 +1180,19 @@ CONV_STEM_CASES = [(2, 45, 45, 3, 7, 7, 64, 2), (1, 38, 51, 3, 7, 7, 128, 2),
 @pytest.mark.parametrize("n,h,w,cin,kh,kw,cout,stride", CONV_STEM_CASES)
 def test_stem_conv2d_entry_matches_plain_and_its_emulation(cuda_device, n, h, w, cin, kh, kw,
                                                            cout, stride, dtype):
-    """Through the stem entry vs plain and the fp64 conv at the band of its
-    dtype and vs its emulation; bf16 at most 1 % of y off the fp64 conv
-    rounded once; at L0's 7 x 7 x 3, fp32 RMS error against fp64 at most 1.05
-    x the plain version's (short sums read above it: the band holds them);
-    the same bits run to run and for every tile_h."""
+    """Through the stem entry (by name: fp32 below conv2d.F32_TF32_MIN_K routes
+    to FFMA) vs plain and the fp64 conv at the band of its dtype and vs its
+    emulation; bf16 at most 1 % of y off the fp64 conv rounded once; at L0's
+    7 x 7 x 3, fp32 RMS error against fp64 at most 1.05 x the plain version's
+    (short sums read above it: the band holds them); the same bits run to run
+    and for every tile_h."""
     x, wt = _conv_inputs(n, h, w, cin, kh, kw, cout, stride, dtype, cuda_device)
+    short = dtype == torch.float32 and kh * kw * cin < conv2d.F32_TF32_MIN_K
+    routed = conv2d.entry(dtype, cin, cout, kh, kw, stride)
+    assert routed == (conv2d.FFMA if short else conv_stem.ENTRY)
     conv2d.COUNTER.reset()
-    got = conv2d.conv2d_ntx(x, wt, stride=stride)
-    again = conv2d.conv2d_ntx(x, wt, stride=stride)
+    got = conv2d.launch(conv_stem.ENTRY, x, wt, stride=stride)
+    again = conv2d.launch(conv_stem.ENTRY, x, wt, stride=stride)
     torch.cuda.synchronize()
     assert conv2d.COUNTER.entries == {conv_stem.ENTRY: 2}
     assert conv2d.COUNTER.plain_calls == 0
@@ -1110,7 +1207,8 @@ def test_stem_conv2d_entry_matches_plain_and_its_emulation(cuda_device, n, h, w,
     elif kh * kw * cin == 147:
         assert _rms_ratio(got, ref64, want) <= 1.05
     for tile_h in (1, 3, 100):
-        assert torch.equal(got, conv2d.conv2d_ntx(x, wt, stride=stride, tile_h=tile_h))
+        assert torch.equal(got, conv2d.launch(conv_stem.ENTRY, x, wt, stride=stride,
+                                              tile_h=tile_h))
 
 
 @pytest.mark.cuda
@@ -1228,3 +1326,40 @@ def test_ssd_tf32_refuses_operands_it_cannot_read(cuda_device):
     with pytest.raises(ValueError, match="takes fp32 with P and N multiples of 64"):
         ssd_scan.launch(ssd_scan_tf32.ENTRY, x.bfloat16(), la, b.bfloat16(), c.bfloat16())
     assert ssd_scan.COUNTER.launches == 0
+
+
+# ROADMAP C5: fp32 sums too short for 3xTF32, routed to the FFMA entries
+C5_CASES = [("conv", 3, 3), ("conv", 5, 3), ("conv", 32, 1), ("attention", 32, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,size,k", C5_CASES,
+                         ids=["conv-K27", "conv-K45", "conv-1x1-cin32", "attention-window32"])
+def test_short_fp32_sums_go_to_ffma_inside_the_rms_gate(cuda_device, kind, size, k):
+    """The conv at K = kh*kw*Cin below conv2d.F32_TF32_MIN_K and attention with
+    a window below flash_attention.F32_TF32_MIN_WINDOW launch the FFMA entry
+    and read at most 1.05 x the plain version's RMS error against fp64; the
+    1xTF32 control reads above it."""
+    if kind == "conv":
+        x, wt = _conv_inputs(4, 34, 34, size, k, k, 64, 1, torch.float32, cuda_device)
+        assert k * k * size < conv2d.F32_TF32_MIN_K
+        conv2d.COUNTER.reset()
+        got = conv2d.conv2d_ntx(x, wt)
+        torch.cuda.synchronize()
+        assert conv2d.COUNTER.entries == {conv2d.FFMA: 1}
+        want = conv2d.conv2d_ntx_torch(x, wt)
+        ref64 = conv2d_ref(x.double(), wt.double())
+        one = (conv_tf32 if size % 32 == 0 else conv_stem).emulate(x, wt, terms=1)
+    else:
+        q, kk, v = _attn_inputs(1, 8, 8, 1024, 1024, 64, 7, cuda_device)
+        kw = {"causal": True, "window": size}
+        assert size < flash_attention.F32_TF32_MIN_WINDOW
+        flash_attention.COUNTER.reset()
+        got = flash_attention.flash_attention(q, kk, v, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.COUNTER.entries == {"flash_attention_f32": 1}
+        want = flash_attention.flash_attention_torch(q, kk, v, **kw)
+        ref64 = attention_ref(q, kk, v, compute_dtype=torch.float64, **kw)
+        one = attn_tf32.emulate(q, kk, v, terms=1, **kw)
+    assert _rms_ratio(got, ref64, want) <= 1.05
+    assert _rms_ratio(one, ref64, want) > 1.05

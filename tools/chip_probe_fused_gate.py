@@ -13,6 +13,9 @@ run, in the order A, B, B, A.
   region "tiles": the source as it is (the fc forward in K tiles of
       _block(K), slices of 8 summed from zero, IEEE adds in order);
   region "chain": the fc forward as one FMA chain over all of K;
+  (both variants are of the arena entry, fused_region_launch, which the
+  probe routes every region to; the shared-memory entry sums the fc forward
+  in the "tiles" order too)
   gemm "slice": the source as it is (each fp32 slice's lo.hi, hi.lo, hi.hi
       summed from zero on the tensor cores, then one IEEE add);
   gemm "apart": hi.hi summed from zero apart from the two small terms and
@@ -116,6 +119,7 @@ def main() -> int:
     from repro_torch.lower import frequency_band_batches, paper_cnn_graph, plan_fusion, run_torch
 
     ops.strict_fp32()
+    fused.entry = lambda compiled: fused.ARENA  # the variants edit the arena entry
     dev = torch.device("cuda", 0)
     out = ROOT / "build" / "probe_fused_gate"
     out.mkdir(parents=True, exist_ok=True)
