@@ -14,6 +14,11 @@ main path, drives the main paths and checks that each went through its kernels:
   shared-memory entry, a thread-block cluster per image, with the arena
   entry checked and timed beside it; and ``streaming_matmul`` on the
   tensor-core GEMM of K-tile partials);
+* ``repro_torch.lower.train_graph(backend="reference")`` on the same CNN
+  step lowered to one NtxProgram (``lower_training_step``: 11,606
+  commands), every command one launch of the command kernel ``ntx_exec``,
+  held against the plain interpreter (logits bit-identical) and the fused
+  step; the matmul and conv command templates against B2, B5 and B6;
 * ``repro_torch.models.lm.prefill`` of Mamba-2 780M at full width and
   depth (48 layers, d_model 1536, vocab 50,288) on 2 x 2,048 tokens, in
   bf16 and in fp32 (the SSD-scan kernels, 48 launches per prefill, both on
@@ -21,8 +26,9 @@ main path, drives the main paths and checks that each went through its kernels:
 * ``repro_torch.models.lm.prefill`` of Qwen1.5-0.5B at full width and
   depth (24 attention + MLP layers, d_model 1024, 16 heads of 64, vocab
   151,936) on 2 x 2,048 tokens, in bf16 and in fp32 (the flash-attention
-  kernels, 24 launches per prefill: bf16 on the tensor-core kernel,
-  fp32 on the 3xTF32 tensor-core kernel);
+  kernels, 24 calls per prefill: bf16 on the tensor-core kernel,
+  fp32 on the 3xTF32 tensor-core kernel, the first 96 query rows of each
+  call on the FFMA kernel);
 * the NTX kernel API at the paper's GoogLeNet layer widths, batch 32:
   ``repro_torch.kernels.ops.matmul`` (plain and compensated, fp32 and bf16)
   on the four layers' im2col products and on 1024^3 (the same tensor-core
@@ -92,8 +98,8 @@ ROUNDED_ONCE = 1e-2
 # where the plain version's fp32 product is off by 2**-24; long sums hide
 # that under their own rounding, sums of a few dozen terms do not. So fp32
 # convs with K below conv2d.F32_TF32_MIN_K and attention with a window below
-# flash_attention.F32_TF32_MIN_WINDOW go to the FFMA entries (check_c5); the
-# first rows of a long causal call still sum few keys on 3xTF32 (printed).
+# flash_attention.F32_TF32_MIN_WINDOW go to the FFMA entries (check_c5), and
+# so do the first 96 rows of a long causal call (flash_attention.ffma_rows).
 # Qwen1.5-0.5B prefill: batch x tokens, ids below the vocab 151,936
 QWEN_BATCH, QWEN_SEQ, QWEN_TOKEN_HIGH = 2, 2048, 151_936
 # the paper's GoogLeNet conv layers (Tables 2-4; CONV_LAYERS["googlenet"] of
@@ -1017,15 +1023,17 @@ def control_ssd(kind: str):
     return {"scores": scores_bf16, "y_e5m2": y_e5m2, "one_term": one_term}[kind]
 
 
-def _prefill_runs(params, tokens, cfg, ctx, mod, n_launch: int, warm: int, launch_gate,
-                  entry: str | None = None):
+def _prefill_runs(params, tokens, cfg, ctx, mod, n_calls: int, warm: int, launch_gate,
+                  entry=None):
     """One counted prefill, one through the plain version, ``warm`` timed ones.
 
     ``mod`` is the kernel module of the path (its wrapper is counted,
-    recorded, timed and routed to its plain version). Every launch of the
-    counted prefill is then held against the plain version on its own
-    operands (the layer's real activations) by ``launch_gate(calls, dtype)``.
-    With ``entry``, every launch of the counted prefill must be of that C entry.
+    recorded, timed and routed to its plain version; it is called
+    ``n_calls`` times a prefill). Every call of the counted prefill is then
+    held against the plain version on its own operands (the layer's real
+    activations) by ``launch_gate(calls, dtype)``. ``entry`` names the C
+    entry each call launches once, or maps each C entry to its launches per
+    call; the counted prefill must launch just those.
     """
     import torch
 
@@ -1046,9 +1054,11 @@ def _prefill_runs(params, tokens, cfg, ctx, mod, n_launch: int, warm: int, launc
           f"{f' by entry {entries}' if entries else ''}; first prefill "
           f"{first * 1e3:.1f} ms; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    per_call = {entry: 1} if isinstance(entry, str) else entry
+    n_launch = n_calls * sum(per_call.values()) if per_call else n_calls
     assert counts == (n_launch, 0), f"{dtype}: expected {n_launch} launches, 0 plain calls"
-    assert entry is None or entries == {entry: n_launch}, \
-        f"{dtype}: expected {n_launch} launches of {entry}, got {entries}"
+    assert per_call is None or entries == {e: n_calls * c for e, c in per_call.items()}, \
+        f"{dtype}: expected {per_call} launches per call over {n_calls} calls, got {entries}"
     assert logits.shape == (*tokens.shape, cfg.vocab_size) and logits.dtype == torch.float32
     assert bool(torch.isfinite(logits).all()), f"{dtype}: non-finite logits"
     launch_gate(calls, dtype)
@@ -1418,7 +1428,8 @@ def check_attention(smoke: Smoke, device, seq: int = QWEN_SEQ):
         print(f"{label:>26} {float(want.float().abs().max()):>8.4f} {e_plain:>12.3f} "
               f"{e_ref:>11.3f} {attn_gate(want, dense):>10.3f}  {', '.join(entries)}")
         entry = fa.entry(dtype, shape[5], window)
-        assert entries == {entry: 1}, f"{label}: launched {entries}"
+        want_entries = fa.launches_of(dtype, shape[3], shape[4], shape[5], window=window)
+        assert entries == want_entries, f"{label}: launched {entries}, not {want_entries}"
         assert bool(torch.isfinite(got).all()), f"{label}: non-finite output"
         assert got.dtype == dtype and got.shape == q.shape, f"{label}: {got.dtype} {got.shape}"
         assert e_plain <= 1 and e_ref <= 1, f"{label}: kernel vs plain {e_plain:.3f}, vs ref {e_ref:.3f} of the gate"
@@ -1433,10 +1444,16 @@ def check_attention(smoke: Smoke, device, seq: int = QWEN_SEQ):
             print(f"{'':>26} RMS vs fp64 {ratio:.4f} x the plain version's (gate {MM_RMS})")
             assert ratio <= MM_RMS, f"{label}: RMS vs fp64 {ratio:.4f} x plain's"
             if label == "qwen prefill f32":
-                first = rms_ratio(got[:, :, :32], ref64[:, :, :32], want[:, :, :32])
-                ratios["qwen prefill f32, rows < 32"] = first
-                print(f"{'':>26} its first 32 rows (each sees at most 32 keys, on 3xTF32; "
-                      f"not gated, ROADMAP C5): RMS vs fp64 {first:.4f} x the plain version's")
+                # rows that see fewer than 96 keys come from the FFMA entry (ROADMAP C5)
+                r = fa.ffma_rows(shape[3], shape[4], True, window)
+                first = rms_ratio(got[:, :, :r], ref64[:, :, :r], want[:, :, :r])
+                ratios[f"qwen prefill f32, rows < {r}"] = first
+                tc_first = rms_ratio(fa.launch(tf32.ENTRY, q, k, v, **kw)[:, :, :r],
+                                     ref64[:, :, :r], want[:, :, :r])
+                print(f"{'':>26} its first {r} rows (each sees at most {r} keys, from the "
+                      f"FFMA entry): RMS vs fp64 {first:.4f} x the plain version's (gate "
+                      f"{MM_RMS}); on the 3xTF32 entry alone {tc_first:.4f}")
+                assert first <= MM_RMS, f"{label}: first {r} rows RMS {first:.4f} x plain's"
                 ctl = {"1xTF32": tf32.emulate(q, k, v, terms=1, **kw),
                        **{kind: control_attention(kind)(q, k, v, **kw)
                           for kind in CONTROLS["float32"]}}
@@ -1638,7 +1655,8 @@ def qwen_prefill_path(smoke: Smoke, device, cfg=None, batch: int = QWEN_BATCH,
     """lm.prefill of Qwen1.5-0.5B at full width and depth, bf16 then fp32.
 
     fp32 runs on the bf16 weights widened. bf16 launches only the bf16
-    tensor-core entry, fp32 only the 3xTF32 one (24 of 24 each). Gates: in both dtypes each
+    tensor-core entry (24 of 24), fp32 the 3xTF32 one and, for the first 96
+    query rows of each call, the FFMA one (24 of each). Gates: in both dtypes each
     of the 24 attention launches against the plain version on its own
     operands, and layer 0's attention_block (ATTN_F32 / ATTN_BF16); in bf16
     layer 0's launch through the rounded-once gate; fp32 logits, kernel vs
@@ -1670,14 +1688,15 @@ def qwen_prefill_path(smoke: Smoke, device, cfg=None, batch: int = QWEN_BATCH,
     print(f"  init_lm(seed=0): {sum(p.numel() for p in params.parameters()):,} parameters, "
           f"{cfg.dtype}, in {time.perf_counter() - t0:.2f} s")
     k16, p16, launches, wall = _prefill_runs(params, tokens, cfg, ctx, fa, n_attn, warm,
-                                             _attn_launch_gate, fa.entry(cfg.dtype, cfg.head_dim))
+                                             _attn_launch_gate,
+                                             fa.launches_of(cfg.dtype, seq, seq, cfg.head_dim))
     profile_prefill(params, tokens, cfg, ctx, wall)
     _attn_block_gate(params, tokens, cfg)
     params.to(torch.float32)  # in place: the same weights, widened
     cfg32 = cfg.with_(dtype=torch.float32)
+    per_call32 = fa.launches_of(cfg32.dtype, seq, seq, cfg.head_dim)
     k32, p32, launches32, wall = _prefill_runs(params, tokens, cfg32, ctx, fa, n_attn, warm,
-                                               _attn_launch_gate,
-                                               fa.entry(cfg32.dtype, cfg.head_dim))
+                                               _attn_launch_gate, per_call32)
     profile_prefill(params, tokens, cfg32, ctx, wall)
     _attn_block_gate(params, tokens, cfg32)
     scale = float(p32.abs().max())
@@ -1702,7 +1721,7 @@ def qwen_prefill_path(smoke: Smoke, device, cfg=None, batch: int = QWEN_BATCH,
     smoke.kernels["flash_attention"]["launches"] = launches
     smoke.kernels["flash_attention"]["launches_by_entry"] = {
         f"{fa.entry(cfg.dtype, cfg.head_dim)} ({cfg.dtype} prefill)": launches,
-        f"{fa.entry(cfg32.dtype, cfg.head_dim)} (fp32 prefill)": launches32}
+        **{f"{e} (fp32 prefill)": n_attn * c for e, c in per_call32.items()}}
     torch.cuda.empty_cache()
 
 
@@ -2325,6 +2344,228 @@ def check_c5(device):
     return readings
 
 
+# the band of tests/test_torch_train.py between the command interpreter and
+# the region kernel (fp64-accumulated vs fp32 sums in another order)
+REF_BAND = {"rtol": 2e-3, "atol": 1e-5}
+
+
+def program_work(program) -> tuple[float, float]:
+    """Bytes (the step's inputs read once, its outputs written once) and
+    operations of one NTX program: two per ``mac`` iteration (multiply and
+    add), one per iteration of every other opcode."""
+    import math
+
+    nbytes = sum(r.bytes for r in program.regions.values()
+                 if r.kind in ("input", "param", "output"))
+    ops = sum(math.prod(b.template.loops) * b.n_commands
+              * (2 if b.template.opcode == "mac" else 1) for b in program.blocks)
+    return float(nbytes), float(ops)
+
+
+def ntx_time_by_step(prog, step) -> dict[str, float]:
+    """Device ms of one run of ``step`` per schedule step of ``prog`` (block
+    tags cut to ``node:pass``; spill / fill and constant blocks under their
+    own tags): the kernel launches read from a torch.profiler trace in
+    issue order, one per command. Empty where the profiler sees no launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    runs = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and "ntx_exec_kernel" in e.name)
+    if len(runs) != prog.n_commands:
+        return {}
+    per, i = {}, 0
+    for b in prog.blocks:
+        key = ":".join(b.tag.split(":")[:2])
+        per[key] = per.get(key, 0.0) + sum(us for _, us in runs[i:i + b.n_commands]) / 1e3
+        i += b.n_commands
+    return per
+
+
+def ntx_program_path(smoke: Smoke, device, steps: int = STEPS):
+    """The NTX command path: the paper CNN's training step lowered to one
+    NtxProgram (lower_training_step) and run command by command on the
+    command kernel (ntx_exec, one launch per command) through
+    train_graph(backend="reference").
+
+    One step on one set of inputs against the plain interpreter (on the
+    host's CPU): logits bit-identical, every other output within TOL (vexp),
+    the same bits run to run; the narrow accumulator (wide=False) is the
+    control, its logits must differ from the wide plain version's. Then
+    ``steps`` reference steps (counts set to 0 just before, read just
+    after: every command one launch, none on the plain version) against the
+    fused run_torch step on the region kernel at REF_BAND. Then the matmul
+    and conv templates on the command kernel against B2's, B5's and B6's
+    kernels at the main path's fc and c2 shapes.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.core.ntx import ntx_execute
+    from repro_torch.kernels import conv2d, ntx_exec, ops, streaming
+    from repro_torch.lower import (frequency_band_batches, lower_training_step, run_reference,
+                                   train_graph)
+    from repro_torch.lower.rules import conv2d_fwd_template, matmul_template
+
+    graph, inputs = main_path_graph_inputs(device)
+    batch, img = graph.batch, graph.input_shape[0]
+    t0 = time.perf_counter()
+    prog = lower_training_step(graph)
+    t_lower = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    table = ntx_exec.program_table(prog)
+    t_plan = time.perf_counter() - t0
+    print(f"  ntx train-step program: {len(prog.blocks)} blocks, {prog.n_commands} commands, "
+          f"peak TCDM {prog.meta['peak_tcdm_bytes']} / {prog.meta['tcdm_budget_bytes']} B "
+          f"({len(prog.meta['spilled'])} spilled); lowered in {t_lower:.3f} s, modes "
+          f"planned in {t_plan:.3f} s: {table['per_mode']}")
+    logits = graph.logits_edge
+
+    # one step: the kernel against the plain interpreter on the host
+    cpu_inputs = {k: v.cpu() for k, v in inputs.items()}
+    ntx_exec.COUNTER.reset()
+    t0 = time.perf_counter()
+    got = run_reference(prog, inputs, device=device)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    again = run_reference(prog, inputs, device=device)
+    narrow = run_reference(prog, inputs, wide=False, device=device)
+    torch.cuda.synchronize()
+    assert ntx_exec.COUNTER.plain_calls == 0
+    t0 = time.perf_counter()
+    want = run_reference(prog, cpu_inputs, device="cpu")
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    assert set(got) == set(want)
+    worst = max(max_abs(got[k].cpu(), want[k]) for k in want)
+    same = torch.equal(got[logits].cpu(), want[logits])
+    print(f"  one step at batch {batch}: kernel vs plain interpreter (CPU, {plain_ms:.0f} ms): "
+          f"logits bit-identical {same}; max_abs over all outputs {worst:.3e}; first kernel "
+          f"step {t_first * 1e3:.1f} ms (device table upload included)")
+    assert same, f"logits differ from the plain interpreter: {max_abs(got[logits].cpu(), want[logits]):.3e}"
+    for k, v in want.items():
+        torch.testing.assert_close(got[k].cpu(), v, **TOL, msg=f"kernel vs plain {k}")
+        assert torch.equal(got[k], again[k]), f"{k}: two runs gave different bits"
+    ctl = max_abs(narrow[logits].cpu(), want[logits])
+    print(f"  control wide=False: logits max_abs {ctl:.3e} from the wide plain version, "
+          f"{'rejected' if ctl > 0 else 'passes'} by the bit-identity gate")
+    assert ctl > 0, "the logits bit-identity gate let the narrow accumulator through"
+
+    # the main path: `steps` reference steps on the kernel, against the fused step
+    batch_fn = frequency_band_batches(np.random.RandomState(0), batch, img, graph.loss.classes)
+    params = graph.init_params(seed=0)
+    ntx_exec.COUNTER.reset()
+    ref = train_graph(graph, steps, batch_fn, backend="reference", program=prog,
+                      params=params, device=device)
+    counts = (ntx_exec.COUNTER.launches, ntx_exec.COUNTER.plain_calls)
+    per_mode = dict(ntx_exec.COUNTER.entries)
+    print(f"  {steps} reference steps: ntx_exec launches / plain calls {counts}, by mode "
+          f"{per_mode}; losses {[round(x, 5) for x in ref['losses']]}")
+    assert counts == (steps * prog.n_commands, 0), counts
+    assert per_mode == {m: steps * n for m, n in table["per_mode"].items() if n}, per_mode
+    assert ref["losses"][-1] < ref["losses"][0], ref["losses"]
+    fused = train_graph(graph, steps, frequency_band_batches(
+        np.random.RandomState(0), batch, img, graph.loss.classes),
+        params=params, device=device)
+    r0, f0 = ref["first_outputs"], fused["first_outputs"]
+    assert set(r0) == set(f0)
+
+    def units(k) -> float:
+        d = (f0[k].double() - r0[k].double()).abs()
+        return float((d / (REF_BAND["atol"] + REF_BAND["rtol"] * r0[k].double().abs())).max())
+
+    far = max(r0, key=units)
+    print(f"  step 0, fused run_torch (region kernel) vs the reference step: worst {far} at "
+          f"{units(far):.4f} of rtol {REF_BAND['rtol']} / atol {REF_BAND['atol']}; losses "
+          f"fused {[round(x, 5) for x in fused['losses']]}")
+    for k in r0:
+        torch.testing.assert_close(f0[k], r0[k], **REF_BAND, msg=f"fused vs reference {k}")
+    np.testing.assert_allclose(fused["losses"], ref["losses"], rtol=REF_BAND["rtol"])
+    walls = ref["walls"][1:]
+    wall = sum(walls) / len(walls) * 1e3
+
+    # time: one step, by events and by the profiler's device time
+    step = lambda: run_reference(prog, inputs, device=device)  # noqa: E731
+    ms = time_ms(step, iters=3, warmup=1)
+    dev_ms = device_ms(step, iters=2)
+    nbytes, nops = program_work(prog)
+    bnd, by = bound_ms(nbytes, nops)
+    _, card = device_info()
+    print(f"  on {card}: reference step at batch {batch}: {ms:.3f} ms by events, {dev_ms:.3f} ms of "
+          f"ntx_exec device time ({dev_ms / ms:.1%} of it), warm step wall {wall:.3f} ms "
+          f"(host clock, synchronised, mean of {len(walls)}); plain interpreter {plain_ms:.0f} "
+          f"ms on the host's CPU; bound {bnd:.5f} ms ({nbytes / 1e6:.3f} MB, "
+          f"{nops / 1e6:.1f} M operations at the fp32 rate, {by}); {ptxas_summary('ntx_exec')}")
+
+    per_step = ntx_time_by_step(prog, step)
+    if per_step:
+        top = sorted(per_step.items(), key=lambda kv: -kv[1])
+        print(f"  device ms by schedule step ({sum(per_step.values()):.3f} ms in "
+              f"{prog.n_commands} launches): " + ", ".join(f"{k} {v:.3f}" for k, v in top[:12])
+              + f"; the other {len(top) - 12} steps {sum(v for _, v in top[12:]):.3f}")
+    else:
+        print("  device ms by schedule step: the profiler saw no launch per command")
+
+    # the templates against B2, B5 and B6 on the card, at the main path's shapes
+    m, n, k = batch, graph.loss.classes, 512  # the fc forward
+    a = seeded((m, k), torch.float32, device, seed=21)
+    b = seeded((k, n), torch.float32, device, seed=22)
+    mem = torch.zeros(m * k + k * n + m * n, device=device)
+    mem[: m * k] = a.reshape(-1)
+    mem[m * k: m * k + k * n] = b.reshape(-1)
+    ntx_exec.COUNTER.reset()
+    ntx_execute(matmul_template(m, n, k, 0, m * k, m * k + k * n), mem, inplace=True)
+    c = mem[m * k + k * n:].reshape(m, n)
+    for label, kernel in (("B5 ops.matmul", ops.matmul(a, b)),
+                          ("B2 streaming_matmul", streaming.streaming_matmul(a, b))):
+        err = max_abs(c, kernel)
+        print(f"  matmul template ({m} x {n} x {k}) vs {label}: max_abs {err:.3e}")
+        torch.testing.assert_close(c, kernel, rtol=1e-5, atol=1e-5, msg=label)
+    x = seeded((1, 18, 18, 16), torch.float32, device, seed=23)  # c2's padded plane
+    w = seeded((3, 3, 16, 32), torch.float32, device, seed=24, scale=0.2)
+    cmem = torch.zeros(x.numel() + w.numel() + 8 * 8 * 32, device=device)
+    cmem[: x.numel()] = x.reshape(-1)
+    cmem[x.numel(): x.numel() + w.numel()] = w.reshape(-1)
+    y0 = x.numel() + w.numel()
+    for co in range(32):  # one command per output channel
+        ntx_execute(conv2d_fwd_template(18, 18, 16, 3, 3, 32, 0, x.numel() + co, y0 + co,
+                                        stride=2), cmem, inplace=True)
+    y = cmem[y0:].reshape(1, 8, 8, 32)
+    yk = conv2d.conv2d_ntx(x, w, stride=2)
+    torch.cuda.synchronize()
+    print(f"  conv template (c2: 18 x 18 x 16, 3 x 3, stride 2, 32 out) vs B6 conv2d_ntx: "
+          f"max_abs {max_abs(y, yk):.3e}; template launches {ntx_exec.COUNTER.launches}")
+    torch.testing.assert_close(y, yk, **CONV_F32, msg="conv template vs B6")
+    assert ntx_exec.COUNTER.launches == 33 and ntx_exec.COUNTER.plain_calls == 0
+
+    smoke.kernels["ntx_exec"] = {
+        "name": "ntx_exec",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ntx_exec.cu",
+        "replaces": "none: the JAX package's numpy interpreter, src/repro/core/ntx.py:117",
+        "launches": counts[0],
+        "launches_by_mode": per_mode,
+        "max_abs_err": worst,
+        "ms": ms,
+        "device_ms": dev_ms,
+        "plain_ms": plain_ms,
+        "plain_device": "cpu",
+        "bound_ms": bnd,
+        "bound_by": by,
+        "library_ms": None,
+        "at": f"one paper-CNN training step, batch {batch}, img {img}, {prog.n_commands} "
+              f"commands",
+        "step_wall_ms": wall,
+        "narrow_control_max_abs": ctl,
+        "device_ms_by_step": per_step,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -2342,6 +2583,7 @@ def main() -> int:
         smoke.phase("streaming_matmul vs plain", check_streaming, smoke, device)
         smoke.phase("fused region vs plain", check_region, smoke, device)
         smoke.phase("main path", main_path, smoke, device)
+        smoke.phase("ntx program path", ntx_program_path, smoke, device)
         smoke.phase("ssd_scan vs plain", check_ssd, smoke, device)
         if "ssd_scan" in smoke.kernels:
             smoke.phase("prefill path", prefill_path, smoke, device)
@@ -2351,7 +2593,7 @@ def main() -> int:
         smoke.phase("ntx_matmul vs plain", check_ntx_matmul, smoke, device)
         smoke.phase("conv2d_ntx vs plain", check_conv2d, smoke, device)
         smoke.phase("C5: short fp32 sums on FFMA", check_c5, device)
-    if len(smoke.kernels) != 6 and "kernels" not in smoke.failures:
+    if len(smoke.kernels) != 7 and "kernels" not in smoke.failures:
         smoke.failures.append("kernels")
     if smoke.failures:
         print(f"chip_smoke FAILED: {smoke.failures}", flush=True)

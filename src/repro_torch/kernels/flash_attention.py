@@ -12,7 +12,10 @@ the tensor-core kernel ``csrc/flash_attention_tf32.cu`` (both products as
 or 256 to the FFMA kernel ``csrc/flash_attention.cu``, and fp32 with a
 window below :data:`F32_TF32_MIN_WINDOW` to the FFMA kernel too (rows of so
 few keys read above the plain version's error on 3xTF32). There is no
-fallback from one to another. All compute what the TPU kernel's
+fallback from one to another. Where an fp32 call goes to the 3xTF32 entry,
+the query rows that see fewer than :data:`F32_TF32_MIN_WINDOW` keys come from
+the FFMA entry all the same (:func:`ffma_rows`): a causal call launches both
+entries and writes the FFMA rows over the first ones. All compute what the TPU kernel's
 ``_attn_kernel`` computes: scores
 ``(q . k) * sm_scale`` in fp32, the KV-tail, causal and sliding-window masks
 with ``NEG_INF = -1e30``, the online max, sum and accumulator in fp32, rows
@@ -139,6 +142,40 @@ def entry(dtype: torch.dtype, d: int, window: int | None = None) -> str:
     return "flash_attention_f32" if dtype == torch.float32 else "flash_attention_bf16"
 
 
+def ffma_rows(sq: int, skv: int, causal: bool, window: int | None) -> int:
+    """Leading query rows of an fp32 call on the 3xTF32 entry that the FFMA
+    entry computes instead: every row that sees fewer than
+    :data:`F32_TF32_MIN_WINDOW` keys.
+
+    Causal masks are top-left (``kv_id <= q_id``), so row ``q`` sees at most
+    ``q + 1`` keys and rows below ``R = min(Sq, 96)`` see only keys below
+    ``R``: the FFMA entry takes ``q, k, v[:, :, :R]``. A non-causal row sees
+    all ``Skv`` keys, fewer if a window cuts the last rows (those cannot be
+    cut out, the kernels have no query offset): such a call, and any with
+    ``Skv`` below the threshold, goes to the FFMA entry whole (``Sq``).
+    """
+    short = F32_TF32_MIN_WINDOW
+    if skv < short:
+        return sq
+    if causal:
+        return min(sq, short)
+    if window is not None and skv - max(0, sq - window) < short:
+        return sq
+    return 0
+
+
+def launches_of(dtype: torch.dtype, sq: int, skv: int, d: int, *, causal: bool = True,
+                window: int | None = None) -> dict[str, int]:
+    """The C entries one :func:`flash_attention` call on the card launches."""
+    name = entry(dtype, d, window)
+    if name != tf32.ENTRY:
+        return {name: 1}
+    rows = ffma_rows(sq, skv, causal, window)
+    if rows == sq:
+        return {"flash_attention_f32": 1}
+    return {name: 1, "flash_attention_f32": 1} if rows else {name: 1}
+
+
 def _fn(name: str):
     fn = getattr(build.library(ENTRIES[name]), name)
     if fn.argtypes is None:
@@ -201,5 +238,12 @@ def flash_attention(
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes q/k/v of one dtype, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
-    return launch(entry(q.dtype, q.shape[3], window), q, k, v, causal=causal, window=window,
-                  sm_scale=sm_scale)
+    name = entry(q.dtype, q.shape[3], window)
+    rows = ffma_rows(q.shape[2], k.shape[2], causal, window) if name == tf32.ENTRY else 0
+    if rows == q.shape[2]:
+        name, rows = "flash_attention_f32", 0
+    o = launch(name, q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+    if rows:  # causal: the rows below `rows` see only the keys below it
+        o[:, :, :rows] = launch("flash_attention_f32", q[:, :, :rows], k[:, :, :rows],
+                                v[:, :, :rows], causal=True, window=window, sm_scale=sm_scale)
+    return o

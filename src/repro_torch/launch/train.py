@@ -1,10 +1,12 @@
 """Training driver of the port: ``python -m repro_torch.launch.train --backend ntx``.
 
 Counterpart of ``repro/launch/train.py``'s ``run_ntx_cnn`` and the ntx
-branch of its CLI: train the paper's small CNN with every step one pass of
-the torch executor — fused region kernels by default, per-node streaming
-matmuls with ``--no-fuse``. Runs on the CUDA device unless ``--device cpu``
-is given.
+branch of its CLI: lower the paper's small CNN to one NTX program per step
+(printed as blocks, commands, peak TCDM against the budget and spills),
+then train it with every step one pass of the torch executor — fused
+region kernels by default (the fusion plan's coverage of the program's
+commands is printed), per-node streaming matmuls with ``--no-fuse``. Runs
+on the CUDA device unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from repro_torch.kernels.ops import resolve_device
 from repro_torch.lower import (
     PlanCache,
     frequency_band_batches,
+    lower_training_step,
     paper_cnn_graph,
     train_graph,
 )
@@ -33,11 +36,17 @@ def run_ntx_cnn(steps: int, batch: int, img: int, *, lr: float = 0.05,
     n_params = sum(int(np.prod(s)) for s in graph.param_shapes().values())
     print(f"ntx train-step graph: {graph.name}, {len(graph.nodes)} nodes, "
           f"{n_params} parameters, batch {batch}, img {img}, device {dev}")
+    program = lower_training_step(graph)
+    print(f"ntx train-step program: {len(program.blocks)} blocks, "
+          f"{program.n_commands} commands, "
+          f"peak TCDM {program.meta['peak_tcdm_bytes']} / "
+          f"{program.meta['tcdm_budget_bytes']} B "
+          f"({len(program.meta['spilled'])} spilled)")
     batch_fn = frequency_band_batches(np.random.RandomState(0), batch, img,
                                       graph.loss.classes)
     cache = PlanCache()
-    res = train_graph(graph, steps, batch_fn, params=graph.init_params(seed=0),
-                      fuse=fuse, device=dev, cache=cache)
+    res = train_graph(graph, steps, batch_fn, program=program,
+                      params=graph.init_params(seed=0), fuse=fuse, device=dev, cache=cache)
     losses = res["losses"]
     for i, (loss, w) in enumerate(zip(losses, res["walls"])):
         print(f"step {i:5d} loss={loss:.4f} ({w*1e3:.0f} ms)", flush=True)
@@ -46,7 +55,9 @@ def run_ntx_cnn(steps: int, batch: int, img: int, *, lr: float = 0.05,
     fusion = res["fusion"]
     if fusion is not None:
         print(f"fusion: {fusion.n_regions} regions + "
-              f"{len(fusion.fallback_steps)} fallback steps per step")
+              f"{len(fusion.fallback_steps)} fallback steps per step, covering "
+              f"{fusion.fused_commands} of {fusion.total_commands} program commands "
+              f"({100 * fusion.coverage:.2f} %)")
     else:
         print("fusion: disabled (--no-fuse) — per-node plan dispatch")
     print(f"done: {steps} ntx steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}")

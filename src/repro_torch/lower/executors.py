@@ -1,9 +1,18 @@
-"""The torch executor of one whole training step.
+"""The executors of one whole training step.
 
-Counterpart of the graph route of ``repro/lower/executors.py``
-(``_run_pallas_graph``, ``_graph_step_local``, ``_walk_fused``, ``PlanCache``).
-:func:`run_torch` walks a :class:`~repro_torch.lower.graph.NetworkGraph` in
-the fwd -> loss grad -> dW/update/dX schedule:
+Counterpart of ``repro/lower/executors.py``'s ``run_reference`` and of its
+graph route (``_run_pallas_graph``, ``_graph_step_local``, ``_walk_fused``,
+``PlanCache``).
+
+:func:`run_reference` executes a lowered
+:class:`~repro_torch.lower.ir.NtxProgram` command by command on a flat fp32
+TCDM: on the card through the command kernel
+(:mod:`repro_torch.kernels.ntx_exec`, one launch per command), on the CPU
+through the plain interpreter (:func:`repro_torch.core.ntx.ntx_execute`).
+
+:func:`run_torch` walks a :class:`~repro_torch.lower.graph.NetworkGraph` (or
+the graph a program was lowered from) in the fwd -> loss grad ->
+dW/update/dX schedule:
 
   * fused (default): the :func:`~repro_torch.lower.fuse.plan_fusion`
     segments — region kernels (:mod:`repro_torch.kernels.fused`) and
@@ -26,8 +35,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import conv_decomp
-from repro_torch.kernels import fused, streaming
-from repro_torch.kernels.ops import resolve_device
+from repro_torch.core.ntx import ntx_execute
+from repro_torch.kernels import fused, ntx_exec, streaming
+from repro_torch.kernels.ops import resolve_device, use_kernel
+from repro_torch.lower.ir import NtxProgram
 from repro_torch.lower.fuse import (
     FusionPlan,
     RegionSpec,
@@ -46,6 +57,38 @@ from repro_torch.lower.rules import (
     SgdUpdateSpec,
     SoftmaxXentSpec,
 )
+
+
+def run_reference(program: NtxProgram, inputs: dict, *, wide: bool = True,
+                  vectorize: bool = True, device=None) -> dict:
+    """Execute ``program`` on a flat TCDM; return its output regions.
+
+    ``inputs`` maps region names (kind "input" / "param") to arrays or
+    tensors of the region's shape. The TCDM is one fp32 tensor on the
+    device: on the card every command runs on the command kernel; on the
+    CPU on the plain interpreter (``vectorize`` picks its fast path).
+    Scratch regions are staged by the program's own memset / copy commands.
+    """
+    dev = resolve_device(device)
+    mem = torch.zeros(program.memory_words, dtype=torch.float32, device=dev)
+    needed = {r.name for r in program.regions.values() if r.kind in ("input", "param")}
+    missing = needed - set(inputs)
+    if missing:
+        raise ValueError(f"missing input regions: {sorted(missing)}")
+    for name, arr in _as_f32(inputs, dev).items():
+        r = program.region(name)
+        if tuple(arr.shape) != r.shape:
+            raise ValueError(f"region {name!r} expects shape {r.shape}, got {tuple(arr.shape)}")
+        mem[r.base:r.end] = arr.reshape(-1)
+    if use_kernel(mem):
+        ntx_exec.run_program(program, mem, wide=wide)
+    else:
+        for cmd in program.commands():
+            ntx_execute(cmd, mem, wide=wide, vectorize=vectorize, inplace=True)
+    return {
+        r.name: mem[r.base:r.end].reshape(r.shape).clone()
+        for r in program.regions_of_kind("output")
+    }
 
 
 def _plan_callable(spec, pass_: str, device: torch.device):
@@ -215,11 +258,17 @@ def run_torch(graph, inputs: dict, *, fuse: bool = True, keep_grads: bool = True
               device=None, cache: PlanCache | None = None) -> dict:
     """Run one training step of ``graph`` on ``inputs``.
 
-    ``inputs`` holds the input edge, the one-hot labels, the parameters and
-    (with momentum) the ``v_<param>`` state, as numpy arrays or tensors.
-    Returns the logits, ``d_<param>`` (with ``keep_grads``), ``<param>_new``
-    and ``v_<param>_new`` as tensors on the device.
+    ``graph`` is a :class:`~repro_torch.lower.graph.NetworkGraph` or an
+    :class:`~repro_torch.lower.ir.NtxProgram` lowered from one (its graph and
+    ``keep_grads`` are taken). ``inputs`` holds the input edge, the one-hot
+    labels, the parameters and (with momentum) the ``v_<param>`` state, as
+    numpy arrays or tensors. Returns the logits, ``d_<param>`` (with
+    ``keep_grads``), ``<param>_new`` and ``v_<param>_new`` as tensors on the
+    device.
     """
+    if isinstance(graph, NtxProgram):
+        keep_grads = graph.meta["keep_grads"]
+        graph = graph.meta["graph"]
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

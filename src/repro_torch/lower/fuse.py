@@ -1,17 +1,19 @@
 """Region fuser: group contiguous train-step steps into fused kernels.
 
 Counterpart of ``repro/lower/fuse.py``. :func:`plan_fusion` walks the
-train-step schedule of a :class:`~repro_torch.lower.graph.NetworkGraph` and
+train-step schedule of a :class:`~repro_torch.lower.graph.NetworkGraph`, or
+of the :class:`~repro_torch.lower.ir.NtxProgram` lowered from one, and
 greedily groups contiguous *fusable* steps into :class:`RegionSpec`
 regions — fwd chains, the softmax-CE gradient, bwd chains and the SGD /
 momentum updates fused as the epilogue of the dW that feeds them. Steps
-without a fusion rule become per-node fallback :class:`Segment`s.
+without a fusion rule become per-node fallback :class:`Segment`s. Given a
+program, the plan also counts the program's commands that its regions
+cover (:attr:`FusionPlan.coverage`).
 
-The JAX fuser takes a lowered NTX program and treats regions that the NTX
-TCDM model spilled as barriers. A GPU has no such budget, so the port plans
-from the graph with ``spilled=()`` by default; ``spilled=`` keeps the
-barrier so the plan can be held against the JAX one on spilled programs.
-Command-level coverage needs the NTX command compiler and is not reported.
+The JAX fuser treats the regions that the NTX TCDM model spilled as
+barriers. A GPU has no such budget, so the port plans with ``spilled=()``
+by default; ``spilled=program.meta["spilled"]`` keeps the barrier, and so
+reproduces the JAX plan and its coverage.
 
 One numerical identity makes bwd chains closed: the relu backward mask can
 be taken from the relu *output* (``y > 0`` iff ``x > 0`` for ``y = max(x,
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from repro_torch.lower.ir import NtxProgram
 from repro_torch.lower.rules import (
     BiasSpec,
     Conv2dSpec,
@@ -81,14 +84,35 @@ class Segment:
 
 @dataclass
 class FusionPlan:
-    """plan_fusion's output: the segment walk plus its accounting."""
+    """plan_fusion's output: the segment walk plus coverage accounting (the
+    command counts stay 0 for a plan made from a graph alone)."""
 
     segments: list[Segment] = field(default_factory=list)
+    fused_steps: set[str] = field(default_factory=set)
     fallback_steps: list[str] = field(default_factory=list)
+    fused_commands: int = 0
+    total_commands: int = 0
 
     @property
     def n_regions(self) -> int:
         return sum(1 for s in self.segments if s.region is not None)
+
+    @property
+    def coverage(self) -> float:
+        """Fused commands / total program commands."""
+        if not self.total_commands:
+            return 0.0
+        return self.fused_commands / self.total_commands
+
+    def stats(self) -> dict:
+        return {
+            "regions": self.n_regions,
+            "fallback_dispatches": len(self.fallback_steps),
+            "fused_steps": len(self.fused_steps),
+            "fused_commands": self.fused_commands,
+            "total_commands": self.total_commands,
+            "coverage": self.coverage,
+        }
 
 
 def step_schedule(graph, keep_grads: bool = True) -> list[str]:
@@ -232,12 +256,20 @@ def plan_fusion(
 ) -> FusionPlan:
     """Plan the fused-region walk for one train step of ``graph``.
 
-    ``spilled`` names edges / node scratch that a memory model spilled;
-    steps touching them become fallbacks. ``fuse_updates=False`` keeps
-    every SGD update a per-node step.
+    ``graph`` is a :class:`~repro_torch.lower.graph.NetworkGraph` or an
+    :class:`~repro_torch.lower.ir.NtxProgram` lowered from one; a program
+    gives its graph, ``keep_grads`` and step order, and the plan counts its
+    commands. ``spilled`` names edges / node scratch that a memory model
+    spilled; steps touching them become fallbacks. ``fuse_updates=False``
+    keeps every SGD update a per-node step.
     """
+    program = graph if isinstance(graph, NtxProgram) else None
+    if program is not None:
+        graph = program.meta["graph"]
+        keep_grads = program.meta["keep_grads"]
     spilled = set(spilled)
-    keys = step_schedule(graph, keep_grads)
+    keys = (program.meta["steps"] if program is not None
+            else step_schedule(graph, keep_grads))
     nodes = {n.name: n for n in graph.nodes}
     unbatched = set()
     for p in graph.param_shapes():
@@ -330,4 +362,12 @@ def plan_fusion(
             outputs=tuple(outputs.items()),
         )
         plan.segments.append(Segment(region=region))
+        plan.fused_steps |= in_region
+
+    # 4. command-level coverage accounting against the program's blocks
+    for block in program.blocks if program is not None else ():
+        step = ":".join(block.tag.split(":")[:2])
+        plan.total_commands += block.n_commands
+        if step in plan.fused_steps:
+            plan.fused_commands += block.n_commands
     return plan

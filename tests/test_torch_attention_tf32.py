@@ -242,3 +242,52 @@ if __name__ == "__main__":  # the RMS ratios behind the gate, printed
         print(f"{case}: RMS vs fp64 over the plain version's, 3xTF32 "
               f"{_rms(tf32.emulate(q, k, v, **kw).double() - ref) / base:.4f}, 1xTF32 "
               f"{_rms(tf32.emulate(q, k, v, terms=1, **kw).double() - ref) / base:.1f}")
+
+
+def routed_emulation(q, k, v, *, causal=True, window=None):
+    """An fp32 call as the card computes it, emulated: the 3xTF32 entry's
+    emulation, the rows :func:`fa.ffma_rows` names from the FFMA entry (its
+    arithmetic is the plain version's, in another order)."""
+    rows = fa.ffma_rows(q.shape[2], k.shape[2], causal, window)
+    o = tf32.emulate(q, k, v, causal=causal, window=window)
+    if rows:
+        o[:, :, :rows] = fa.flash_attention_torch(q[:, :, :rows], k[:, :, :rows],
+                                                  v[:, :, :rows], causal=True, window=window)
+    return o
+
+
+@pytest.mark.parametrize("d", tf32.HEAD_DIMS)
+def test_rows_that_see_few_keys_come_from_the_ffma_entry(d):
+    """Rows of a causal fp32 call that see fewer than F32_TF32_MIN_WINDOW keys
+    read at most MM_RMS x the plain version's RMS error against fp64 once
+    they come from the FFMA entry; on 3xTF32 alone the first 32 read above it."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 8, 8, 512, 512, d, seed=d))
+    ref = attention_ref(q, k, v, compute_dtype=torch.float64, causal=True)
+    plain = fa.flash_attention_torch(q, k, v)
+
+    def ratio(o, rows):
+        return _rms(o[:, :, rows].double() - ref[:, :, rows]) / _rms(
+            plain[:, :, rows].double() - ref[:, :, rows])
+
+    first, short = slice(0, 32), slice(0, fa.F32_TF32_MIN_WINDOW)
+    routed = routed_emulation(q, k, v)
+    assert ratio(routed, short) <= MM_RMS and ratio(routed, slice(None)) <= MM_RMS
+    assert ratio(tf32.emulate(q, k, v), first) > MM_RMS  # the defect the route repairs
+    assert fa.launches_of(torch.float32, 512, 512, d) == {tf32.ENTRY: 1,
+                                                          "flash_attention_f32": 1}
+
+
+def test_ffma_rows_follow_the_keys_each_row_sees():
+    short = fa.F32_TF32_MIN_WINDOW
+    assert fa.ffma_rows(2048, 2048, True, None) == short
+    assert fa.ffma_rows(2048, 2048, True, 1024) == short
+    assert fa.ffma_rows(40, 40, True, None) == 40  # every row is short: the whole call
+    assert fa.ffma_rows(256, 64, True, None) == 256  # Skv below the threshold
+    assert fa.ffma_rows(128, 64, False, None) == 128
+    assert fa.ffma_rows(128, 128, False, None) == 0  # every row sees 128 keys
+    assert fa.ffma_rows(512, 128, False, 100) == 512  # a window cuts the last rows short
+    assert fa.launches_of(torch.float32, 40, 40, 64) == {"flash_attention_f32": 1}
+    assert fa.launches_of(torch.float32, 128, 128, 64, causal=False) == {tf32.ENTRY: 1}
+    assert fa.launches_of(torch.bfloat16, 2048, 2048, 64) == {"flash_attention_bf16_wgmma": 1}
+    assert fa.launches_of(torch.float32, 2048, 2048, 64, window=32) == {
+        "flash_attention_f32": 1}

@@ -57,7 +57,10 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.kernels.conv2d_ntx_wgmma", "repro_torch.kernels.gemm_wgmma",
                 "repro_torch.kernels.ssd_scan_wgmma", "repro_torch.kernels.flash_attention_tf32",
                 "repro_torch.kernels.conv2d_ntx_tf32", "repro_torch.kernels.conv2d_ntx_stem",
-                "repro_torch.kernels.ssd_scan_tf32"):
+                "repro_torch.kernels.ssd_scan_tf32", "repro_torch.core.ntx",
+                "repro_torch.kernels.ntx_exec", "repro_torch.lower.ir",
+                "repro_torch.lower.rules", "repro_torch.lower.graph",
+                "repro_torch.lower.fuse"):
         assert mod in res["modules"]
 
 

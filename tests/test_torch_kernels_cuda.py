@@ -538,7 +538,9 @@ def test_attention_kernel_matches_plain(cuda_device, b, hq, hkv, sq, skv, d, cau
     want = flash_attention.flash_attention_torch(q, k, v, **kw)
     dense = attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert (flash_attention.COUNTER.launches, flash_attention.COUNTER.plain_calls) == (2, 1)
+    per_call = sum(flash_attention.launches_of(dtype, sq, skv, d, **kw).values())
+    assert (flash_attention.COUNTER.launches, flash_attention.COUNTER.plain_calls) == (
+        2 * per_call, 1)
     assert got.dtype == dtype and got.shape == q.shape
     assert torch.equal(got, again)  # no atomics: the same bits run to run
     _attn_close(got, want)
@@ -662,9 +664,11 @@ def test_attention_launches_are_counted_per_entry(cuda_device):
                      (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.bfloat16, 256)):
         flash_attention.flash_attention(*_attn_inputs(1, 2, 1, 128, 128, d, 1, cuda_device, dtype))
     torch.cuda.synchronize()
+    # the causal fp32 call at D 64 also launches the FFMA entry for its first
+    # 96 rows (flash_attention.ffma_rows)
     assert flash_attention.COUNTER.entries == {
-        "flash_attention_f32": 1, attn_tf32.ENTRY: 1, "flash_attention_bf16": 2, wgmma.ENTRY: 2}
-    assert flash_attention.COUNTER.launches == 6
+        "flash_attention_f32": 2, attn_tf32.ENTRY: 1, "flash_attention_bf16": 2, wgmma.ENTRY: 2}
+    assert flash_attention.COUNTER.launches == 7
 
 
 _FRESH_QWEN_PREFILL = """
@@ -1061,7 +1065,8 @@ def test_tf32_attention_entry_matches_plain(cuda_device, b, hq, hkv, sq, skv, d,
     want = flash_attention.flash_attention_torch(q, k, v, **kw)
     ref64 = attention_ref(q, k, v, compute_dtype=torch.float64, **kw)
     torch.cuda.synchronize()
-    assert flash_attention.COUNTER.entries == {attn_tf32.ENTRY: 3}
+    per_call = flash_attention.launches_of(torch.float32, sq, skv, d, **kw)
+    assert flash_attention.COUNTER.entries == {name: 3 * n for name, n in per_call.items()}
     assert flash_attention.COUNTER.plain_calls == 1
     assert torch.equal(got, again) and torch.equal(got, contiguous)
     _attn_close(got, want)
@@ -1363,3 +1368,124 @@ def test_short_fp32_sums_go_to_ffma_inside_the_rms_gate(cuda_device, kind, size,
         one = attn_tf32.emulate(q, kk, v, terms=1, **kw)
     assert _rms_ratio(got, ref64, want) <= 1.05
     assert _rms_ratio(one, ref64, want) > 1.05
+
+
+# ntx_exec: the NTX command kernel vs the plain interpreter
+EXEC_ULPS = {"vexp": 2}  # CUDA's expf: at most 2 ulp; the plain exp is correctly rounded
+
+
+def _exec_ulps(a, b) -> int:
+    ia, ib = (t.cpu().view(torch.int32).long() for t in (a, b))
+    return int((ia - ib).abs().max())
+
+
+def _exec_command(rng, op, streaming: bool):
+    from repro_torch.core.ntx import MAX_LOOPS, Agu, NtxCommand
+
+    loops = tuple(int(x) for x in rng.randint(1, 4 if streaming else 5, MAX_LOOPS))
+    dense = tuple(int(np.prod(loops[:j])) for j in range(MAX_LOOPS))
+
+    def agu(base=None):
+        return Agu(int(rng.randint(0, 60)) if base is None else base,
+                   tuple(int(s) for s in rng.randint(-3, 4, MAX_LOOPS)))
+
+    lvl = int(rng.randint(0, MAX_LOOPS + 1))
+    two = op in ("mac", "vadd", "vmul", "cmpge")
+    if streaming:  # dense unique writes away from the reads
+        return NtxCommand(loops=loops, opcode=op, agu_rd0=Agu(0, dense),
+                          agu_rd1=Agu(300, dense) if two else None, agu_wr=Agu(700, dense),
+                          init_level=lvl, store_level=0, init_value=float(rng.randn()))
+    # vexp writes away from its reads: exp of an exp read back would grow the
+    # expf error past its bound
+    return NtxCommand(loops=loops, opcode=op, agu_rd0=agu(), agu_rd1=agu() if two else None,
+                      agu_wr=agu(200 + int(rng.randint(0, 60))) if op == "vexp" else agu(),
+                      init_level=lvl,
+                      store_level=lvl if op == "mac" else int(rng.randint(0, 3)),
+                      init_value=float(rng.randn()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [True, False], ids=["wide", "narrow"])
+@pytest.mark.parametrize("op", ["mac", "vadd", "vmul", "vmax", "vmin", "relu", "copy", "memset",
+                                "argmax", "sign", "cmpge", "vexp", "vrecip", "vrsqrt"])
+def test_ntx_exec_command_matches_plain(cuda_device, op, wide):
+    """Random commands of one opcode, one launch each, against the plain
+    interpreter on the same memory: the same bits (vexp within 2 ulp), in
+    every mode the planning picks for them."""
+    from repro_torch.core import ntx
+    from repro_torch.kernels import ntx_exec
+
+    rng = np.random.RandomState(sum(map(ord, op)) + wide)
+    seen = set()
+    ntx_exec.COUNTER.reset()
+    for i in range(24):
+        cmd = _exec_command(rng, op, streaming=i % 4 == 0)
+        mem = np.abs(rng.randn(1024)).astype(np.float32) + 0.1
+        mem[::3] *= -1 if op != "vrsqrt" else 1
+        want = ntx.ntx_execute(cmd, torch.from_numpy(mem), wide)
+        got = ntx.ntx_execute(cmd, torch.from_numpy(mem).to(cuda_device), wide)
+        torch.cuda.synchronize()
+        seen.add(ntx_exec.command_mode(cmd, mem.size))
+        assert _exec_ulps(got, want) <= EXEC_ULPS.get(op, 0), repr(cmd)
+    assert ntx_exec.COUNTER.launches == 24 and sum(ntx_exec.COUNTER.entries.values()) == 24
+    assert ntx_exec.REGION in seen and ntx_exec.SEQUENTIAL in seen
+    if op in ntx_exec._STREAM_OPS:
+        assert ntx_exec.STREAMING in seen
+
+
+@pytest.mark.cuda
+def test_ntx_exec_training_step_matches_plain(cuda_device):
+    """One training step of the paper CNN at batch 4 / img 16 through the
+    command kernel (one launch per command, from one C call) against the
+    plain interpreter: logits bit-identical, the rest within rtol 1e-5 /
+    atol 1e-6 (vexp), the same bits run to run, 0 plain calls; the narrow
+    accumulator is the narrow plain interpreter's bits too."""
+    from repro_torch.kernels import ntx_exec
+    from repro_torch.lower import lower_training_step, run_reference
+
+    graph = paper_cnn_graph(batch=4, img=16)
+    prog = lower_training_step(graph)
+    x, labels = frequency_band_batches(np.random.RandomState(0), 4, 16)(0)
+    inputs = {"x": x, "onehot": np.eye(10, dtype=np.float32)[labels], **graph.init_params(1)}
+    want = run_reference(prog, inputs, device="cpu")
+    ntx_exec.COUNTER.reset()
+    got = run_reference(prog, inputs, device=cuda_device)
+    again = run_reference(prog, inputs, device=cuda_device)
+    torch.cuda.synchronize()
+    per_mode = ntx_exec.program_table(prog)["per_mode"]
+    assert ntx_exec.COUNTER.launches == 2 * prog.n_commands
+    assert ntx_exec.COUNTER.entries == {m: 2 * n for m, n in per_mode.items() if n}
+    assert ntx_exec.COUNTER.plain_calls == 0
+    assert torch.equal(got[graph.logits_edge].cpu(), want[graph.logits_edge])
+    for k, v in want.items():
+        assert torch.equal(got[k], again[k]), k
+        torch.testing.assert_close(got[k].cpu(), v, rtol=1e-5, atol=1e-6, msg=k)
+    narrow = run_reference(prog, inputs, wide=False, device=cuda_device)
+    narrow_plain = run_reference(prog, inputs, wide=False, device="cpu")
+    assert torch.equal(narrow[graph.logits_edge].cpu(), narrow_plain[graph.logits_edge])
+
+
+@pytest.mark.cuda
+def test_ntx_exec_templates_match_the_kernels(cuda_device):
+    """The matmul and conv templates on the command kernel against B5's and
+    B6's kernels on the card: one contraction, two designs."""
+    from repro_torch.core import ntx
+    from repro_torch.lower.rules import conv2d_fwd_template, matmul_template
+
+    m, n, k = 64, 48, 96
+    a, b = _mm_inputs(m, n, k, torch.float32, cuda_device)
+    mem = torch.zeros(20_000, device=cuda_device)
+    mem[: m * k] = a.reshape(-1)
+    mem[8_000: 8_000 + k * n] = b.reshape(-1)
+    ntx.ntx_execute(matmul_template(m, n, k, 0, 8_000, 14_000), mem, inplace=True)
+    got = mem[14_000: 14_000 + m * n].reshape(m, n)
+    torch.testing.assert_close(got, ops.matmul(a, b), rtol=1e-5, atol=1e-5)
+    x, wt = _conv_inputs(1, 18, 18, 32, 3, 3, 64, 1, torch.float32, cuda_device)
+    cmem = torch.zeros(60_000, device=cuda_device)
+    cmem[: x.numel()] = x.reshape(-1)
+    cmem[20_000: 20_000 + wt.numel()] = wt.reshape(-1)
+    for co in range(64):  # one command per output channel
+        ntx.ntx_execute(conv2d_fwd_template(18, 18, 32, 3, 3, 64, 0, 20_000 + co, 40_000 + co),
+                        cmem, inplace=True)
+    y = cmem[40_000: 40_000 + 16 * 16 * 64].reshape(1, 16, 16, 64)
+    torch.testing.assert_close(y, conv2d.conv2d_ntx(x, wt), rtol=1e-4, atol=1e-4)

@@ -141,4 +141,6 @@ def test_cli_trains_on_cpu():
               for line in proc.stdout.splitlines() if line.startswith("step ")]
     assert len(losses) == 3 and losses[-1] < losses[0]
     assert "fusion: 1 regions + 0 fallback steps" in proc.stdout
+    assert "ntx train-step program: 82 blocks, 774 commands" in proc.stdout
+    assert "covering 756 of 774 program commands (97.67 %)" in proc.stdout
     assert "plan cache:" in proc.stdout
