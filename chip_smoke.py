@@ -19,6 +19,12 @@ main path, drives the main paths and checks that each went through its kernels:
   commands), every command one launch of the command kernel ``ntx_exec``,
   held against the plain interpreter (logits bit-identical) and the fused
   step; the matmul and conv command templates against B2, B5 and B6;
+* the obs layer and the NTX timing model on that step: ``run_ntx_cnn`` with
+  ``metrics=`` and ``trace=`` (losses bit-identical to the plain run, one
+  region launch a step, the JSONL's counters equal to the program's closed
+  form and the fusion plan, the trace's lowering, dispatch and ``hmc0``
+  lanes), ``run_timing`` of the step program on both engines against the
+  JAX package's figures, one reference step under a registry;
 * ``repro_torch.models.lm.prefill`` of Mamba-2 780M at full width and
   depth (48 layers, d_model 1536, vocab 50,288) on 2 x 2,048 tokens, in
   bf16 and in fp32 (the SSD-scan kernels, 48 launches per prefill, both on
@@ -2566,6 +2572,185 @@ def ntx_program_path(smoke: Smoke, device, steps: int = STEPS):
     }
 
 
+# The JAX package's lower_training_step + run_timing(n_clusters=16) of the
+# main path's step program (paper CNN, batch 64, img 32): outputs of the NTX
+# cycle model, not times on any chip. The block engine materialises at most
+# 50,000 records and elides the rest; the event engine keeps them all.
+MODEL_TOTALS = {"offloads": 10_847, "staging_offloads": 759, "commands": 11_606,
+                "busy_cycles": 106_731_647, "dma_bytes": 77_215_656}
+MODEL_SUMMARY = {"clusters": 16, "total_cycles": 2_420_531, "queue_depth": 4,
+                 "n_commands": 11_606, "dma_stall_cycles": 5_212_941,
+                 "queue_stall_cycles": 22_654_386, "overhead_cycles": 7_558_537}
+MODEL_UTILIZATION = 0.34449
+MODEL_ELIDED = {"event": 0, "block": 3_472}
+F_NTX = 1.5e9  # the NTX clock of the cycle model
+
+
+def check_metrics(path, res) -> dict:
+    """The metrics JSONL of one instrumented run: one record per step, each
+    with the program's closed-form totals and the fusion plan's counters."""
+    from repro_torch import obs
+
+    recs = obs.read_jsonl(path)
+    assert [r["step"] for r in recs] == list(range(STEPS)), [r["step"] for r in recs]
+    totals = obs.program_totals(res["program"])
+    fusion = res["fusion"]
+    want_fusion = {"regions": fusion.n_regions,
+                   "fallback_dispatches": len(fusion.fallback_steps),
+                   "fused_commands": fusion.fused_commands,
+                   "unfused_commands": fusion.total_commands - fusion.fused_commands}
+    for r in recs:
+        c = r["counters"]
+        assert {k: c.get(k) for k in totals} == totals, (r["step"], c)
+        assert {k: c.get(k) for k in want_fusion} == want_fusion, (r["step"], c)
+        assert r["loss"] == res["losses"][r["step"]]
+    calls = sum(r["counters"]["calls"] for r in recs)
+    assert calls == res["cache"].calls, (calls, res["cache"].calls)
+    return recs[-1]["counters"]
+
+
+def check_trace(path, res) -> dict:
+    """The merged trace of one instrumented run: one lowering span per
+    emitting step, one dispatch span per plan call, hmc0 exec and DMA lanes,
+    flow events."""
+    doc = json.loads(Path(path).read_text())
+    evs = doc["traceEvents"]
+    prog = res["program"]
+    steps = set(prog.meta["steps"])
+    names = [e["name"][len("lower:"):] for e in evs if e.get("cat") == "lowering"]
+    emitted = {":".join(b.tag.split(":")[:2]) for b in prog.blocks} & steps
+    assert len(names) == len(set(names)), "a step was lowered twice"
+    assert emitted <= set(names) <= steps, (emitted - set(names), set(names) - steps)
+    spans = [e for e in evs if e.get("cat") in ("fused", "dispatch")]
+    assert len(spans) == res["cache"].calls, (len(spans), res["cache"].calls)
+    assert all(e["pid"] == "host" and e["tid"] == "dispatch" for e in spans)
+    lanes = {(e["cat"], e["tid"]) for e in evs if e["pid"] == "hmc0" and e["ph"] == "X"}
+    assert {c for c, _ in lanes} == {"exec", "dma"}, lanes
+    n_clusters = prog.meta["n_clusters"]
+    assert {t for c, t in lanes if c == "exec"} == {f"cluster{c}" for c in range(n_clusters)}
+    flows = {e["ph"] for e in evs if e.get("cat") == "flow"}
+    assert flows >= {"s", "f"}, flows
+    cats = {}
+    for e in evs:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    return {"events": len(evs), "by_cat": cats, "lowering_spans": len(names),
+            "plan_call_spans": len(spans), "span_names": sorted({e["name"] for e in spans})}
+
+
+def booking_ms(res, reps: int = 40) -> float:
+    """Host ms of what an instrumented fused step books inside its wall: the
+    step scope, the program's digest, the plan-cache delta, the fusion
+    counters and one host span; five steps into a fresh registry a rep."""
+    from repro_torch import obs
+    from repro_torch.lower import executors
+
+    program, cache, fusion = res["program"], res["cache"], res["fusion"]
+    col = obs.TraceCollector()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        reg = obs.CounterRegistry()
+        for i in range(STEPS):
+            before = (cache.hits, cache.misses, cache.calls)
+            with reg.scope(f"step{i}"), col.host_span("region", cat="fused"):
+                obs.record_program(reg, program)
+                executors._record_cache_delta(reg, cache, before)
+                executors._record_fusion(reg, fusion)
+    return (time.perf_counter() - t0) * 1e3 / (reps * STEPS)
+
+
+def obs_and_timing(device):
+    """The obs layer and the NTX timing model on the main path.
+
+    run_ntx_cnn at the main path's width, fused, eight times: plain,
+    instrumented (--metrics, --trace), instrumented, plain, twice. Losses
+    must be bit-identical across the eight, every run one region launch a
+    step and no plain call; each metrics record carries the program's
+    closed-form totals and the fusion plan's counters; each trace has its
+    lowering, dispatch and hmc0 lanes. The host cost of what an
+    instrumented step books is timed apart. Then run_timing on the step
+    program, on both engines, against the JAX package's figures, and one
+    reference step (the command kernel) under a registry against the
+    closed form.
+    """
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.kernels import fused, ntx_exec, streaming
+    from repro_torch.launch.train import run_ntx_cnn
+    from repro_torch.lower import frequency_band_batches, run_timing, train_graph
+
+    counters = (fused.COUNTER, streaming.COUNTER)
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, instrumented in enumerate((False, True, True, False) * 2):
+            for c in counters:
+                c.reset()
+            files = (dict(metrics=f"{tmp}/m{k}.jsonl", trace=f"{tmp}/t{k}.json")
+                     if instrumented else {})
+            res = run_ntx_cnn(STEPS, BATCH, IMG, device=device, **files)
+            counts = {c.name: (c.launches, c.plain_calls) for c in counters}
+            assert counts["fused_region"] == (STEPS, 0), counts
+            assert counts["streaming_matmul"][1] == 0, counts
+            info = {}
+            if instrumented:
+                info["counters"] = check_metrics(files["metrics"], res)
+                info["trace"] = check_trace(files["trace"], res)
+            walls = res["walls"][1:]
+            runs.append((instrumented, res, counts, sum(walls) / len(walls) * 1e3, info))
+    base = runs[0][1]
+    for instrumented, res, counts, wall, _ in runs:
+        assert res["losses"] == base["losses"], (instrumented, res["losses"], base["losses"])
+        assert counts == runs[0][2], (counts, runs[0][2])
+    info = runs[1][4]
+    print(f"  {len(runs)} runs (plain, instrumented, instrumented, plain, twice): losses "
+          f"bit-identical "
+          f"{[round(x, 6) for x in base['losses']]}; launches / plain calls {runs[0][2]} "
+          f"in every run")
+    print(f"  step counters (last record): {info['counters']}")
+    print(f"  trace: {info['trace']}")
+    _, card = device_info()
+    mean = {i: sum(r[3] for r in runs if r[0] == i) / (len(runs) / 2) for i in (False, True)}
+    print(f"  on {card}: warm fused step wall (host clock, synchronised, mean of steps 1-"
+          f"{STEPS - 1}), ms: " + ", ".join(
+              f"{'instrumented' if r[0] else 'plain'} {r[3]:.3f}" for r in runs)
+          + f"; means plain {mean[False]:.3f}, instrumented {mean[True]:.3f}")
+    print(f"  host booking of one instrumented step, apart: {booking_ms(base):.4f} ms "
+          f"(the card machine's CPU)")
+
+    # the NTX timing model on the step program, both engines
+    program = base["program"]
+    assert obs.program_totals(program) == MODEL_TOTALS, obs.program_totals(program)
+    for engine in ("event", "block"):
+        t0 = time.perf_counter()
+        result = run_timing(program, n_clusters=16, engine=engine)
+        host_s = time.perf_counter() - t0
+        s = result.summary()
+        print(f"  run_timing engine={engine}: {s}; exec_cycles {result.exec_cycles}; "
+              f"{host_s:.3f} s of host wall on the card machine's CPU")
+        assert {k: s[k] for k in MODEL_SUMMARY} == MODEL_SUMMARY, s
+        assert s["elided_commands"] == MODEL_ELIDED[engine], s
+        assert round(s["utilization"], 5) == MODEL_UTILIZATION, s
+        assert result.exec_cycles == MODEL_TOTALS["busy_cycles"]
+    print(f"  modeled step (NTX cycle model, {F_NTX / 1e9:.1f} GHz, 16 clusters; not a time "
+          f"on any chip): {MODEL_SUMMARY['total_cycles']} cycles = "
+          f"{MODEL_SUMMARY['total_cycles'] / F_NTX * 1e3:.6f} ms, utilization "
+          f"{MODEL_UTILIZATION}")
+
+    # the reference path under a registry: one step on the command kernel
+    graph = program.meta["graph"]
+    reg = obs.CounterRegistry()
+    ntx_exec.COUNTER.reset()
+    ref = train_graph(graph, 1, frequency_band_batches(np.random.RandomState(0), BATCH, IMG),
+                      backend="reference", program=program, device=device, registry=reg)
+    totals = reg.totals("step0/")
+    assert {k: totals.get(k) for k in MODEL_TOTALS} == MODEL_TOTALS, totals
+    assert (ntx_exec.COUNTER.launches, ntx_exec.COUNTER.plain_calls) == (program.n_commands, 0)
+    assert obs.get_active() is None
+    print(f"  reference step under a registry: {totals}; loss {ref['losses'][0]:.6f}")
+
+
 def main() -> int:
     import torch
 
@@ -2584,6 +2769,7 @@ def main() -> int:
         smoke.phase("fused region vs plain", check_region, smoke, device)
         smoke.phase("main path", main_path, smoke, device)
         smoke.phase("ntx program path", ntx_program_path, smoke, device)
+        smoke.phase("obs and timing model", obs_and_timing, device)
         smoke.phase("ssd_scan vs plain", check_ssd, smoke, device)
         if "ssd_scan" in smoke.kernels:
             smoke.phase("prefill path", prefill_path, smoke, device)

@@ -4,9 +4,10 @@
     prog  = lower_training_step(graph)            # one NtxProgram per step
     outs  = run_reference(prog, inputs)           # command by command (ntx_exec)
     outs  = run_torch(graph, inputs)              # region kernels (fused)
+    res   = run_timing(prog, n_clusters=16)       # the NTX cycle model
 """
 
-from repro_torch.lower.executors import PlanCache, run_reference, run_torch
+from repro_torch.lower.executors import PlanCache, run_reference, run_timing, run_torch
 from repro_torch.lower.fuse import (
     FusionPlan,
     RegionSpec,
@@ -59,6 +60,6 @@ __all__ = [
     "RegionAllocator", "RegionSpec", "ReluSpec", "Segment", "SgdUpdateSpec",
     "SoftmaxXentSpec", "Stage", "TensorRegion", "edge_consumers", "frequency_band_batches",
     "lower", "lower_layer", "lower_training_step", "paper_cnn_graph", "plan_fusion",
-    "register_lowering", "run_reference", "run_torch", "softmax_xent_loss", "step_schedule",
-    "supported_matrix", "train_graph",
+    "register_lowering", "run_reference", "run_timing", "run_torch", "softmax_xent_loss",
+    "step_schedule", "supported_matrix", "train_graph",
 ]

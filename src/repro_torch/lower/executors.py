@@ -1,8 +1,8 @@
 """The executors of one whole training step.
 
-Counterpart of ``repro/lower/executors.py``'s ``run_reference`` and of its
-graph route (``_run_pallas_graph``, ``_graph_step_local``, ``_walk_fused``,
-``PlanCache``).
+Counterpart of ``repro/lower/executors.py``'s ``run_reference``,
+``run_timing`` and of its graph route (``_run_pallas_graph``,
+``_graph_step_local``, ``_walk_fused``, ``PlanCache``).
 
 :func:`run_reference` executes a lowered
 :class:`~repro_torch.lower.ir.NtxProgram` command by command on a flat fp32
@@ -19,6 +19,14 @@ dW/update/dX schedule:
     per-node fallback steps;
   * ``fuse=False``: every step per node.
 
+:func:`run_timing` plays a program through the NTX cycle model
+(:mod:`repro_torch.runtime.scheduler`): host arithmetic, no device.
+
+With a :class:`~repro_torch.obs.CounterRegistry` installed, every executor
+books the program's closed-form counts (and :func:`run_torch` its plan-cache
+and fusion counters); with a :class:`~repro_torch.obs.TraceCollector`
+installed, :func:`run_torch` wraps each plan call in a host span.
+
 Per-node conv and matmul passes run on the streaming matmul kernel
 (:mod:`repro_torch.kernels.streaming`). There is no per-image vmap: conv
 passes put the batch straight into the matmul M dimension, and conv dW
@@ -34,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import conv_decomp
 from repro_torch.core.ntx import ntx_execute
 from repro_torch.kernels import fused, ntx_exec, streaming
@@ -47,6 +56,8 @@ from repro_torch.lower.fuse import (
     pool_tiles,
     step_schedule,
 )
+from repro_torch.obs import trace as obs_trace
+from repro_torch.runtime import scheduler as rt_sched
 from repro_torch.lower.rules import (
     BiasSpec,
     Conv2dSpec,
@@ -85,10 +96,42 @@ def run_reference(program: NtxProgram, inputs: dict, *, wide: bool = True,
     else:
         for cmd in program.commands():
             ntx_execute(cmd, mem, wide=wide, vectorize=vectorize, inplace=True)
+    obs.record_program(obs.get_active(), program)
     return {
         r.name: mem[r.base:r.end].reshape(r.shape).clone()
         for r in program.regions_of_kind("output")
     }
+
+
+def run_timing(
+    program: NtxProgram,
+    *,
+    n_clusters: int = 1,
+    cluster=None,
+    f_ntx: float = 1.5e9,
+    engine: str = "auto",
+    exec_cycles=None,
+):
+    """Simulate ``program`` on the offload runtime; returns a ScheduleResult.
+
+    The command stream and the per-command input-DMA byte counts both come
+    straight from the lowered program, so the timing model sees exactly what
+    :func:`run_reference` executes. ``engine`` picks the simulation strategy
+    (``"auto"`` | ``"event"`` | ``"block"``): the block-replicated
+    steady-state path gives cycle counts identical to the event-driven
+    engine in O(blocks) time. ``exec_cycles`` optionally overrides
+    per-command datapath cycles (must not depend on AGU bases on the block
+    path). Cycles are the NTX model's, not a time on any chip.
+    """
+    sched = rt_sched.MultiClusterScheduler(
+        n_clusters=n_clusters, cluster=cluster, f_ntx=f_ntx
+    )
+    result = sched.schedule_program(program, engine=engine, exec_cycles=exec_cycles)
+    reg = obs.get_active()
+    if reg is not None:
+        obs.record_program(reg, program)
+        obs.record_schedule(reg, result)
+    return result
 
 
 def _plan_callable(spec, pass_: str, device: torch.device):
@@ -254,36 +297,103 @@ def _as_f32(inputs: dict, device: torch.device) -> dict:
     return out
 
 
+def _fusion_for(program: NtxProgram) -> FusionPlan:
+    """The program's memoised fusion plan (it counts the program's commands)."""
+    plan = program.meta.get("_fusion_plan")
+    if plan is None:
+        plan = program.meta["_fusion_plan"] = plan_fusion(program)
+    return plan
+
+
+def _record_cache_delta(reg, cache: PlanCache, before) -> None:
+    """Book what the cache did during one executor call under plan_cache/."""
+    if not reg.enabled:
+        return
+    h0, m0, c0 = before
+    with reg.scope("plan_cache"):
+        reg.inc("hits", cache.hits - h0)
+        reg.inc("misses", cache.misses - m0)
+        reg.inc("calls", cache.calls - c0)
+
+
+def _record_fusion(reg, fusion: FusionPlan | None) -> None:
+    """Book what the fuser covered this step under fusion/."""
+    if not reg.enabled or fusion is None:
+        return
+    with reg.scope("fusion"):
+        reg.inc("regions", fusion.n_regions)
+        reg.inc("fallback_dispatches", len(fusion.fallback_steps))
+        reg.inc("fused_commands", fusion.fused_commands)
+        reg.inc("unfused_commands", fusion.total_commands - fusion.fused_commands)
+
+
+def _spanned(col, plan: CompiledPlan, spec, pass_: str):
+    """``plan`` wrapped in a host span: the region's label with cat "fused",
+    ``Type:pass`` with cat "dispatch". The span ends when the call returns,
+    without a device synchronise, so it times the host's dispatch."""
+    label = spec.label if isinstance(spec, RegionSpec) else None
+    name = label or f"{type(spec).__name__}:{pass_}"
+    cat = "fused" if label else "dispatch"
+
+    def timed(j):
+        with col.host_span(name, tid="dispatch", cat=cat):
+            return plan(j)
+
+    return timed
+
+
 def run_torch(graph, inputs: dict, *, fuse: bool = True, keep_grads: bool = True,
               device=None, cache: PlanCache | None = None) -> dict:
     """Run one training step of ``graph`` on ``inputs``.
 
     ``graph`` is a :class:`~repro_torch.lower.graph.NetworkGraph` or an
     :class:`~repro_torch.lower.ir.NtxProgram` lowered from one (its graph and
-    ``keep_grads`` are taken). ``inputs`` holds the input edge, the one-hot
+    ``keep_grads`` are taken, and the fusion plan is the program's, which
+    counts its commands). ``inputs`` holds the input edge, the one-hot
     labels, the parameters and (with momentum) the ``v_<param>`` state, as
     numpy arrays or tensors. Returns the logits, ``d_<param>`` (with
     ``keep_grads``), ``<param>_new`` and ``v_<param>_new`` as tensors on the
     device.
+
+    With a registry active it books the plan cache's ``hits``, ``misses``
+    and ``calls`` of this call under ``plan_cache/`` (the JAX executor's
+    ``retraces`` has no counterpart: the cache holds Python callables, with
+    no tracing JIT behind them), the fusion plan under ``fusion/`` when
+    fused, and, when given a program, the program's closed-form counts.
     """
+    program = None
     if isinstance(graph, NtxProgram):
-        keep_grads = graph.meta["keep_grads"]
-        graph = graph.meta["graph"]
+        program = graph
+        keep_grads = program.meta["keep_grads"]
+        graph = program.meta["graph"]
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if cache is None:
         cache = PlanCache()
+    reg = obs.get_active()
+    col = obs_trace.get_active_trace()
+    before = (cache.hits, cache.misses, cache.calls) if reg is not None else None
     j = _as_f32(inputs, dev)
 
     def plan(spec, pass_):
-        return cache.get(spec, pass_, dev)
+        p = cache.get(spec, pass_, dev)
+        return p if col is None else _spanned(col, p, spec, pass_)
 
+    fusion = None
     if fuse:
-        segments = cache.fusion_plan(graph, keep_grads).segments
+        fusion = (_fusion_for(program) if program is not None
+                  else cache.fusion_plan(graph, keep_grads))
+        segments = fusion.segments
     else:
         segments = [Segment(step=k) for k in step_schedule(graph, keep_grads)]
-    return _walk(graph, j, plan, segments, keep_grads=keep_grads)
+    out = _walk(graph, j, plan, segments, keep_grads=keep_grads)
+    if reg is not None:
+        if program is not None:
+            obs.record_program(reg, program)
+        _record_cache_delta(reg, cache, before)
+        _record_fusion(reg, fusion)
+    return out
 
 
 def _walk(graph, j, plan, segments, *, keep_grads):

@@ -18,6 +18,7 @@ both give bit-identical parameter arrays for the same seed.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from dataclasses import dataclass, field
@@ -26,6 +27,8 @@ from typing import Any, Callable, Iterable
 import numpy as np
 
 from repro_torch.core.ntx import Agu, NtxCommand
+from repro_torch.obs import counters as obs_counters
+from repro_torch.obs import trace as obs_trace
 from repro_torch.lower import rules
 from repro_torch.lower.ir import (
     ELEM_BYTES,
@@ -734,6 +737,7 @@ def _assemble(
     spilled = set(alloc.spilled)
 
     # emit, inserting spill/fill DMA blocks around spilled regions' lives
+    col = obs_trace.get_active_trace()
     blocks: list[CommandBlock] = []
     filled: set[str] = set()
     spilled_out: set[str] = set()
@@ -752,7 +756,12 @@ def _assemble(
                 spilled_out.add(root)
         blocks.extend(pre)
         if step.emit is not None:
-            blocks.extend(step.emit(regions))
+            if col is not None:
+                with col.host_span(f"lower:{step.key}", tid="lowering",
+                                   cat="lowering"):
+                    blocks.extend(step.emit(regions))
+            else:
+                blocks.extend(step.emit(regions))
         blocks.extend(post)
 
     prog = NtxProgram(
@@ -852,6 +861,8 @@ def train_graph(
     fuse: bool = True,
     device=None,
     cache=None,
+    registry=None,
+    metrics_path=None,
 ) -> dict[str, Any]:
     """Train ``graph`` for ``steps`` steps.
 
@@ -863,21 +874,30 @@ def train_graph(
     outputs and stay on the device between steps. The result carries the
     per-step losses, the per-step wall seconds (each ending in a device
     synchronise), the final parameters as numpy arrays, the step-0 outputs,
-    the program and the fusion plan (from the program when one was given,
-    so that it counts coverage; None for the reference backend and for
-    ``fuse=False``).
+    the program, the fusion plan (from the program when there is one, so
+    that it counts coverage; None for the reference backend and for
+    ``fuse=False``) and the registry.
+
+    ``registry`` (a :class:`repro_torch.obs.CounterRegistry`) is installed
+    for the loop (else the active one, if any, is used); each step records
+    under a ``step{i}`` scope, so per-step totals equal the program's
+    closed-form counts. With a registry the torch backend runs the program
+    (lowered here when not given), so that it books those counts.
+    ``metrics_path`` streams one JSONL record per step (step, loss, wall
+    seconds, the step's counter totals).
     """
     import torch
 
     from repro_torch.convert import params_from_jax, params_to_numpy
     from repro_torch.kernels.ops import resolve_device
     from repro_torch.lower import executors
-    from repro_torch.lower.fuse import plan_fusion
+    from repro_torch.obs import report as obs_report
 
     if backend not in ("torch", "reference"):
         raise ValueError(f"unknown backend {backend!r}; expected 'torch' or 'reference'")
     dev = resolve_device(device)
-    if backend == "reference" and program is None:
+    reg = registry if registry is not None else obs_counters.get_active()
+    if program is None and (backend == "reference" or reg is not None):
         program = lower_training_step(graph)
     if cache is None:
         cache = executors.PlanCache()
@@ -888,31 +908,51 @@ def train_graph(
     losses: list[float] = []
     walls: list[float] = []
     first = None
-    for i in range(steps):
-        t0 = time.perf_counter()
-        x, labels = batch_fn(i)
-        inputs = {
-            graph.input_edge: torch.as_tensor(np.asarray(x, np.float32), device=dev),
-            graph.label_edge: torch.as_tensor(eye[np.asarray(labels)], device=dev),
-            **params,
-        }
-        if backend == "reference":
-            outs = executors.run_reference(program, inputs, device=dev)
-        else:
-            outs = executors.run_torch(graph, inputs, fuse=fuse, device=dev, cache=cache)
-        logits = outs[graph.logits_edge].cpu().numpy()  # synchronises
-        losses.append(softmax_xent_loss(logits, labels))
-        if first is None:
-            first = outs
-        for p in graph.param_shapes():
-            params[p] = outs[f"{p}_new"]
-            if graph.momentum:
-                params[f"v_{p}"] = outs[f"v_{p}_new"]
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        walls.append(time.perf_counter() - t0)
+    writer = obs_report.MetricsWriter(metrics_path) if metrics_path else None
+    install = (obs_counters.use_registry(registry) if registry is not None
+               else contextlib.nullcontext())
+    try:
+        with install:
+            for i in range(steps):
+                t0 = time.perf_counter()
+                x, labels = batch_fn(i)
+                inputs = {
+                    graph.input_edge: torch.as_tensor(np.asarray(x, np.float32), device=dev),
+                    graph.label_edge: torch.as_tensor(eye[np.asarray(labels)], device=dev),
+                    **params,
+                }
+                with reg.scope(f"step{i}") if reg is not None else contextlib.nullcontext():
+                    if backend == "reference":
+                        outs = executors.run_reference(program, inputs, device=dev)
+                    else:
+                        outs = executors.run_torch(
+                            program if program is not None else graph, inputs,
+                            fuse=fuse, device=dev, cache=cache)
+                logits = outs[graph.logits_edge].cpu().numpy()  # synchronises
+                losses.append(softmax_xent_loss(logits, labels))
+                if first is None:
+                    first = outs
+                for p in graph.param_shapes():
+                    params[p] = outs[f"{p}_new"]
+                    if graph.momentum:
+                        params[f"v_{p}"] = outs[f"v_{p}_new"]
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                walls.append(time.perf_counter() - t0)
+                if writer is not None:
+                    writer.write({
+                        "step": i,
+                        "loss": losses[-1],
+                        "wall_s": walls[-1],
+                        "counters": reg.totals(f"step{i}/") if reg is not None else {},
+                    })
+    finally:
+        if writer is not None:
+            writer.close()
     fusion = None
     if backend == "torch" and fuse:
-        fusion = plan_fusion(program) if program is not None else cache.fusion_plan(graph)
+        fusion = (executors._fusion_for(program) if program is not None
+                  else cache.fusion_plan(graph))
     return {"params": params_to_numpy(params), "losses": losses, "walls": walls,
-            "first_outputs": first, "program": program, "fusion": fusion}
+            "first_outputs": first, "program": program, "fusion": fusion,
+            "registry": reg}

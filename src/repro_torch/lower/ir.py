@@ -116,6 +116,10 @@ class CommandBlock:
         return math.prod(self.reps) if self.reps else 1
 
     @property
+    def busy_cycles_per_command(self) -> int:
+        return self.template.busy_cycles
+
+    @property
     def busy_cycles(self) -> int:
         return self.n_commands * self.template.busy_cycles
 
@@ -194,11 +198,55 @@ class NtxProgram:
         """Total datapath cycles (one loop iteration per cycle, §2.3)."""
         return sum(b.busy_cycles for b in self.blocks)
 
+    @property
+    def busy_cycles_per_offload(self) -> int:
+        """Cycles of the dominant (first non-staging) command template."""
+        for b in self.blocks:
+            if not b.is_staging:
+                return b.busy_cycles_per_command
+        return 0
+
+    @property
+    def dma_bytes(self) -> float:
+        return sum(
+            (b.dma_bytes_in + b.dma_bytes_out) * b.n_commands for b in self.blocks
+        )
+
     # -- command stream -----------------------------------------------------
 
     def commands(self) -> Iterator[NtxCommand]:
         for b in self.blocks:
             yield from b.commands()
+
+    def command_dma_bytes(self) -> Iterator[float]:
+        """Per-command input DMA bytes, aligned with :meth:`commands`."""
+        for b in self.blocks:
+            for _ in range(b.n_commands):
+                yield b.dma_bytes_in
+
+    def block_segments(self) -> Iterator[tuple[NtxCommand, int, float]]:
+        """(template, n_commands, dma_bytes_in) per block, in program order.
+
+        Every command a block replicates shares the template's loop bounds,
+        AGU population and per-command DMA bytes (only bases move), so this
+        stream describes the whole program to the timing model without
+        materialising a command: what
+        :func:`repro_torch.runtime.cmdqueue.simulate_offload_blocks` reads.
+        """
+        for b in self.blocks:
+            yield b.template, b.n_commands, b.dma_bytes_in
+
+    def summary(self) -> dict[str, Any]:
+        return {
+            "name": self.name,
+            "design": self.design.name,
+            "n_offloads": self.n_offloads,
+            "n_staging_offloads": self.n_staging_offloads,
+            "busy_cycles": self.busy_cycles,
+            "busy_cycles_per_offload": self.busy_cycles_per_offload,
+            "dma_bytes": self.dma_bytes,
+            "memory_words": self.memory_words,
+        }
 
 
 #: Sentinel "lives until the end of the program" step index.

@@ -60,7 +60,11 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.kernels.ssd_scan_tf32", "repro_torch.core.ntx",
                 "repro_torch.kernels.ntx_exec", "repro_torch.lower.ir",
                 "repro_torch.lower.rules", "repro_torch.lower.graph",
-                "repro_torch.lower.fuse"):
+                "repro_torch.lower.fuse", "repro_torch.runtime",
+                "repro_torch.runtime.dma", "repro_torch.runtime.cmdqueue",
+                "repro_torch.runtime.scheduler", "repro_torch.obs",
+                "repro_torch.obs.counters", "repro_torch.obs.report",
+                "repro_torch.obs.trace"):
         assert mod in res["modules"]
 
 
