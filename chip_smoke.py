@@ -25,6 +25,15 @@ main path, drives the main paths and checks that each went through its kernels:
   form and the fusion plan, the trace's lowering, dispatch and ``hmc0``
   lanes), ``run_timing`` of the step program on both engines against the
   JAX package's figures, one reference step under a registry;
+* the LM graph route: ``repro_torch.launch.train.run_ntx_lm`` on
+  Qwen1.5-0.5B at full width and depth (244 graph nodes, 550,406,144
+  parameters) at batch 2, seq 64 as one NtxProgram per step (10,257 blocks,
+  14,217 commands; 42,067,031,703 NTX cycles on the block engine), three
+  steps: every matmul and embedding pass on ``streaming_matmul``, the 97
+  matmul-weight updates as update-only regions on the fused-region kernel;
+  one step held against the same step on the plain versions (with a bf16
+  control), the reduced config with ``check_grads`` and one reference step
+  on ``ntx_exec``;
 * ``repro_torch.models.lm.prefill`` of Mamba-2 780M at full width and
   depth (48 layers, d_model 1536, vocab 50,288) on 2 x 2,048 tokens, in
   bf16 and in fp32 (the SSD-scan kernels, 48 launches per prefill, both on
@@ -2751,6 +2760,379 @@ def obs_and_timing(device):
     print(f"  reference step under a registry: {totals}; loss {ref['losses'][0]:.6f}")
 
 
+# The LM graph route (ROADMAP A5): Qwen1.5-0.5B at full width and depth as
+# one NTX training-step program, batch 2 x seq 64. The program's counts and
+# the block engine's cycles are the JAX package's figures (NTX cycle model,
+# not a time on any chip); the card's fusion plan (no spill barrier) has one
+# update-only region per matmul weight.
+LM_MODEL, LM_BATCH, LM_SEQ, LM_STEPS = "qwen1_5_0_5b", 2, 64, 3
+LM_PROGRAM = {"nodes": 244, "params": 550_406_144, "blocks": 10_257, "commands": 14_217,
+              "offloads": 4_020, "spilled": 2_194}
+LM_CYCLES = 42_067_031_703
+LM_FUSION = (97, 735)  # update-only regions, fallback steps
+LM_UPDATED = 394_657_792  # elements the 97 regions update (the matmul weights)
+# full-width step, kernels vs plain versions on the same relu masks:
+# max|diff| <= LM_GATE max|plain| on every output
+LM_GATE = 1e-4
+LM_REDUCED = (3, 2, 8)  # steps, batch, seq of the reduced config
+
+
+@contextlib.contextmanager
+def plain_regions():
+    """Route the fused-region wrapper to its plain version, on the card: the
+    callables a fresh plan cache builds run region_torch."""
+    from repro_torch.kernels import fused
+
+    orig = fused.build_region_callable
+
+    def build(region, *, device):
+        return lambda ins: fused.region_torch(region, {n: ins[n] for n, _ in region.inputs})
+
+    fused.build_region_callable = build
+    try:
+        yield
+    finally:
+        fused.build_region_callable = orig
+
+
+@contextlib.contextmanager
+def relu_masks(record: list | None = None, held: list | None = None,
+               flips: list | None = None):
+    """The relu dX plans a fresh plan cache builds: with ``record``, keep each
+    call's relu input x; with ``held``, take each call's mask (x > 0) from
+    the x recorded in the same call of another step and count in ``flips``
+    the elements whose own mask differs. A relu's dX is not continuous in x:
+    a pre-activation within an ulp or two of 0 flips its mask between two
+    numerics of the same step, and moves a whole row of the weight's
+    gradient."""
+    import torch
+
+    from repro_torch.lower import executors
+    from repro_torch.lower.rules import ReluSpec
+
+    orig = executors._plan_callable
+    it = iter(held) if held is not None else None
+
+    def plan_callable(spec, pass_, device):
+        fn = orig(spec, pass_, device)
+        if not (isinstance(spec, ReluSpec) and pass_ == "dx"):
+            return fn
+
+        def dx(j):
+            if record is not None:
+                record.append(j["x"])
+            if it is None:
+                return fn(j)
+            kx = next(it)
+            flips.append(int(((kx > 0) != (j["x"] > 0)).sum()))
+            return {"dx": torch.where(kx > 0.0, j["dy"], 0.0)}
+
+        return dx
+
+    executors._plan_callable = plan_callable
+    try:
+        yield
+    finally:
+        executors._plan_callable = orig
+
+
+def lm_gate(got: dict, want: dict) -> dict[str, float]:
+    """max|got - want| / (LM_GATE max|want|) per output: the gate holds where
+    every reading is at most 1."""
+    return {k: max_abs(got[k], want[k]) / (LM_GATE * float(want[k].abs().max()) + 1e-30)
+            for k in want}
+
+
+def lm_graph_route(smoke: Smoke, device):
+    """The LM graph route at full width: run_ntx_lm on Qwen1.5-0.5B (24
+    layers, d_model 1024, 16 heads of 64, d_ff 2816, vocab 151,936), batch 2,
+    seq 64, three steps: every matmul and embedding pass on B2
+    (streaming_matmul, the tensor-core GEMM), the 97 matmul-weight updates on
+    B1 (update-only regions: the epilogue alone), attention, layernorm,
+    residual and positions plain. The program's counts and block-engine
+    cycles against the JAX package's; launches per C entry in a step (counts
+    set to 0 just before the run, read just after); one step through the
+    kernels against the same step with B2 and B1 routed to their plain
+    versions. A relu's dX is not continuous: a pre-activation within an ulp
+    or two of 0 takes another mask in the two numerics (15 of 8.65 M
+    elements of this step on an H100) and moves a whole row of that weight's
+    gradient, far past any band. So the plain step is read twice: on its own
+    masks (the logits, which are continuous, held within LM_GATE; every
+    reading printed) and on the kernel step's masks (relu_masks), where
+    every output must lie within LM_GATE of max|plain|, with the kernel
+    step's outputs rounded through bf16 as the control the gate must reject.
+    Then the reduced config: three steps with --check-grads (loss must fall,
+    every gradient within rtol 1e-4 / atol 1e-5 of torch.autograd), and one
+    reference step on ntx_exec against the plain interpreter and run_torch.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import params_from_jax
+    from repro_torch.kernels import fused, ntx_exec, streaming
+    from repro_torch.kernels import gemm_wgmma as gemm
+    from repro_torch.launch.train import run_ntx_lm
+    from repro_torch.lower import (PlanCache, lm_token_batches, one_hot_rows, run_reference,
+                                   run_torch, train_graph)
+
+    counters = (fused.COUNTER, streaming.COUNTER)
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    res = run_ntx_lm(LM_MODEL, LM_STEPS, LM_BATCH, LM_SEQ, reduced=False, device=device)
+    t_run = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {c.name: (c.launches, c.plain_calls) for c in counters}
+    entries = {"fused_region": dict(fused.COUNTER.entries),
+               "streaming_matmul": dict(streaming.COUNTER.entries)}
+    prog, fusion = res["program"], res["fusion"]
+    graph = prog.meta["graph"]
+    n_params = sum(math.prod(s) for s in graph.param_shapes().values())
+    got_prog = {"nodes": len(graph.nodes), "params": n_params, "blocks": len(prog.blocks),
+                "commands": prog.n_commands, "offloads": prog.n_offloads,
+                "spilled": len(prog.meta["spilled"])}
+    print(f"  program {got_prog}; block-engine cycles {res['timing'].total_cycles} (JAX: "
+          f"{LM_PROGRAM}, {LM_CYCLES}); fusion plan (no spill barrier) {fusion.n_regions} "
+          f"regions + {len(fusion.fallback_steps)} fallback steps, coverage "
+          f"{fusion.coverage:.6f}")
+    assert got_prog == LM_PROGRAM, got_prog
+    assert res["timing"].total_cycles == LM_CYCLES, res["timing"].total_cycles
+    assert (fusion.n_regions, len(fusion.fallback_steps)) == LM_FUSION
+    per_step = {name: {e: n / LM_STEPS for e, n in es.items()} for name, es in entries.items()}
+    print(f"  {LM_STEPS} steps: launches / plain calls {launches}; per step by C entry: "
+          f"{per_step}")
+    assert launches["fused_region"] == (LM_STEPS * LM_FUSION[0], 0), launches
+    assert fused.COUNTER.entries == {fused.SMEM: LM_STEPS * LM_FUSION[0]}, fused.COUNTER.entries
+    assert launches["streaming_matmul"][0] > 0 and launches["streaming_matmul"][1] == 0, launches
+    losses = res["losses"]
+    assert all(math.isfinite(x) for x in losses), losses
+    for k, v in res["first_outputs"].items():
+        assert torch.isfinite(v).all(), f"{k} not finite"
+    walls = res["walls"][1:]
+    wall = sum(walls) / len(walls) * 1e3
+    trend = "falling" if losses[-1] < losses[0] else "not falling"
+    print(f"  losses {[round(x, 5) for x in losses]} ({trend}; not gated); warm step wall "
+          f"{wall:.1f} ms (host clock, synchronised, mean of steps 1-{LM_STEPS - 1}); "
+          f"run_ntx_lm {t_run:.1f} s in all (host init of {n_params} parameters, lowering "
+          f"and the timing model included)")
+
+    # the full-width gate: one step through the kernels, the same step plain
+    V = graph.loss.classes
+    x, labels = lm_token_batches(np.random.RandomState(1), LM_BATCH, LM_SEQ, V)(0)
+    ins = {graph.input_edge: torch.as_tensor(x, device=device),
+           graph.label_edge: torch.as_tensor(one_hot_rows(labels, V), device=device),
+           **params_from_jax(res["params"], graph, device)}
+    del res
+    shapes = []
+    orig_mm = streaming.streaming_matmul
+
+    def shape_recorder(a, b):
+        shapes.append((a, b))
+        return orig_mm(a, b)
+
+    xs: list = []
+    for c in counters:
+        c.reset()
+    with routed(streaming, shape_recorder), relu_masks(record=xs):
+        kern = run_torch(prog, ins, device=device, cache=PlanCache())
+    torch.cuda.synchronize()
+    step_counts = {c.name: (c.launches, c.plain_calls, dict(c.entries)) for c in counters}
+    groups = {"logits": [graph.logits_edge],
+              "d_<p>": [k for k in kern if k.startswith("d_")],
+              "<p>_new": [k for k in kern if k.endswith("_new")]}
+
+    def show(readings) -> str:
+        return ", ".join(f"{g} worst {max(readings[k] for k in ks):.4f}"
+                         for g, ks in groups.items())
+
+    # the plain step as it is: its own relu masks
+    for c in counters:
+        c.reset()
+    with plain_route(streaming), plain_regions():
+        plain = run_torch(prog, ins, device=device, cache=PlanCache())
+    torch.cuda.synchronize()
+    plain_counts = {c.name: (c.launches, c.plain_calls) for c in counters}
+    print(f"  one step: kernels {step_counts}; plain route {plain_counts}")
+    assert step_counts["fused_region"][:2] == (LM_FUSION[0], 0), step_counts
+    assert step_counts["streaming_matmul"][0] == len(shapes) and \
+        step_counts["streaming_matmul"][1] == 0, step_counts
+    assert plain_counts == {"fused_region": (0, LM_FUSION[0]),
+                            "streaming_matmul": (0, len(shapes))}, plain_counts
+    assert set(kern) == set(plain)
+    free = lm_gate(kern, plain)
+    outside = sorted((k for k, r in free.items() if r > 1), key=lambda k: -free[k])
+    print(f"  full-width, kernels vs plain, each step with its own relu masks (max|diff| / "
+          f"({LM_GATE} max|plain|)): {show(free)}; {len(outside)} of {len(free)} outputs "
+          f"above 1: " + ", ".join(f"{k} {free[k]:.2f}" for k in outside[:6]))
+    assert free[graph.logits_edge] <= 1, f"logits: {free[graph.logits_edge]:.4f} of the gate"
+    del plain
+    # the gate: the plain step on the kernel step's relu masks (the same branch
+    # of the piecewise-linear step), every output
+    flips: list = []
+    with plain_route(streaming), plain_regions(), relu_masks(held=xs, flips=flips):
+        plain = run_torch(prog, ins, device=device, cache=PlanCache())
+    torch.cuda.synchronize()
+    del xs
+    readings = lm_gate(kern, plain)
+    worst = max(readings, key=readings.get)
+    ctl = lm_gate({k: v.to(torch.bfloat16).float() for k, v in kern.items()}, plain)
+    failing = sorted(k for k, r in ctl.items() if r > 1)
+    relu_elems = sum(LM_BATCH * math.prod(n.spec.shape) for n in graph.nodes
+                     if type(n.spec).__name__ == "ReluSpec")
+    print(f"  relu masks that differ between the two steps: {sum(flips)} of {relu_elems} "
+          f"elements, by relu dX call (last layer first) {flips}")
+    print(f"  full-width gate, kernels vs plain on the kernel step's relu masks (at most 1): "
+          f"{show(readings)}; overall worst {worst} at {readings[worst]:.4f}")
+    print(f"  control, the kernel step's outputs rounded through bf16: {show(ctl)}; "
+          f"{len(failing)} of {len(ctl)} outputs outside the gate "
+          f"({'rejected' if failing else 'passes'})")
+    assert readings[worst] <= 1, f"{worst}: {readings[worst]:.4f} of the gate"
+    assert failing, "the full-width gate let the bf16 control through"
+    max_err = max(max_abs(kern[k], plain[k]) for k in kern)
+    del plain
+    cache = PlanCache()
+
+    # times: the step, each B2 call, the 97 regions; every one on this run's inputs
+    step = lambda: run_torch(prog, ins, device=device, cache=cache)  # noqa: E731
+    ms = time_ms(step, iters=2, warmup=0)
+    dev_by_kernel = kernel_ms(step, iters=1)
+    dev = sum(dev_by_kernel.values())
+    gemm_dev = sum(v for k, v in dev_by_kernel.items() if "gemm_kernel" in k or "join_kernel" in k)
+    region_dev = sum(v for k, v in dev_by_kernel.items() if "region_epilogue" in k)
+    _, card = device_info()
+    print(f"  on {card}: full-width step {ms:.1f} ms by events (mean of 2 warm steps), "
+          f"{dev:.1f} ms of device time by torch.profiler ({dev / ms:.1%} of it): B2 GEMM + "
+          f"join {gemm_dev:.1f} ms, B1 epilogues {region_dev:.3f} ms, the rest "
+          f"{dev - gemm_dev - region_dev:.1f} ms")
+    groups_mm: dict = {}
+    for a, b in shapes:
+        key = (tuple(a.shape), tuple(b.shape), a.stride(), b.stride())
+        groups_mm.setdefault(key, [0, a, b])[0] += 1
+    sms = gemm.sm_count(device.index or 0)
+    mm = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops")}
+    print(f"  {len(shapes)} streaming_matmul calls a step, {len(groups_mm)} shapes:")
+    print(f"{'M':>8} {'N':>7} {'K':>7} {'calls':>5} {'split':>5} {'ms':>9} {'plain':>9} "
+          f"{'lib':>9} {'bound':>9}")
+    for (sa, sb, _, _), (count, a, b) in sorted(groups_mm.items(), key=lambda kv: kv[0][:2]):
+        m, k = sa
+        n = sb[1]
+        iters = 2 if k * n * m > 1e10 else 10
+        t = time_ms(lambda: streaming.streaming_matmul(a, b), iters=iters, warmup=1)
+        tp = time_ms(lambda: streaming.streaming_matmul_torch(a, b), iters=iters, warmup=1)
+        tl = time_ms(lambda: torch.matmul(a, b), iters=iters, warmup=1)
+        nbytes, flops = 4.0 * (m * k + k * n + m * n), 2.0 * m * n * k
+        bnd, _ = bound_ms(nbytes, 3 * flops, "tf32")
+        split = gemm.plan_split(m, n, k, streaming._block(k), sms)
+        print(f"{m:>8} {n:>7} {k:>7} {count:>5} {split:>5} {t:>9.4f} {tp:>9.4f} {tl:>9.4f} "
+              f"{bnd:>9.5f}")
+        for key, v in (("ms", t), ("plain_ms", tp), ("library_ms", tl), ("bound_ms", bnd),
+                       ("bytes", nbytes), ("flops", flops)):
+            mm[key] += count * v
+    _, mm_by = bound_ms(mm["bytes"], 3 * mm["flops"], "tf32")
+    print(f"  B2 on the LM step: {mm['ms']:.2f} ms of kernel time (sum over calls), plain "
+          f"{mm['plain_ms']:.2f} ms, torch.matmul {mm['library_ms']:.2f} ms, bound "
+          f"{mm['bound_ms']:.4f} ms ({mm['bytes'] / 1e9:.3f} GB, 3 x {mm['flops'] / 1e9:.1f} "
+          f"GFLOP at the tf32 rate; {mm_by})")
+
+    # the 97 update-only regions of one step, on this step's d_<p>
+    regions = [s.region for s in fusion.segments if s.region is not None]
+    region_ins = []
+    for r in regions:
+        region_ins.append((cache.get(r, "region", device).fn,
+                           {n: (kern[n] if n in kern else ins[n]) for n, _ in r.inputs}))
+    updated = sum(math.prod(graph.param_shapes()[r.stages[0].param]) for r in regions)
+    assert updated == LM_UPDATED, updated
+    t_reg = time_ms(lambda: [fn(i) for fn, i in region_ins], iters=5, warmup=1)
+    t_reg_plain = time_ms(lambda: [fused.region_torch(r, i) for r, (_, i) in
+                                   zip(regions, region_ins)], iters=5, warmup=1)
+    ws = [i[r.stages[0].param] for r, (_, i) in zip(regions, region_ins)]
+    dws = [i[f"d_{r.stages[0].param}"] for r, (_, i) in zip(regions, region_ins)]
+    t_reg_lib = time_ms(lambda: torch._foreach_add(ws, dws, alpha=-graph.lr), iters=5, warmup=1)
+    reg_bnd, reg_by = bound_ms(12.0 * updated, 2.0 * updated)
+    reg_err = 0.0
+    for r, (fn, i) in zip(regions, region_ins):
+        out, want = fn(i), fused.region_torch(r, i)
+        for k in out:
+            assert torch.equal(out[k], want[k]), f"{r.label} {k}: kernel != plain"
+    print(f"  B1 on the LM step: {len(regions)} update-only regions ({updated} elements), "
+          f"{t_reg:.3f} ms by events, plain {t_reg_plain:.3f} ms, torch._foreach_add "
+          f"{t_reg_lib:.3f} ms, bound {reg_bnd:.4f} ms ({12 * updated / 1e9:.3f} GB, {reg_by}); "
+          f"every region's outputs == region_torch's bits")
+    del kern
+
+    # the reduced config: --check-grads, then the reference step on ntx_exec
+    steps_r, batch_r, seq_r = LM_REDUCED
+    try:
+        red = run_ntx_lm(LM_MODEL, steps_r, batch_r, seq_r, reduced=True, device=device,
+                         check_grads=True)
+    except SystemExit as e:  # check_lm_grads' failure
+        raise AssertionError(str(e)) from None
+    assert red["losses"][-1] < red["losses"][0], red["losses"]
+    print(f"  reduced: losses {[round(x, 5) for x in red['losses']]}, gradients within rtol "
+          f"1e-4 / atol 1e-5 of torch.autograd (worst rel err {red['grad_err']:.2e})")
+    prog_r = red["program"]
+    graph_r = prog_r.meta["graph"]
+    Vr = graph_r.loss.classes
+    table = ntx_exec.program_table(prog_r)
+    xr, lr_ = lm_token_batches(np.random.RandomState(0), batch_r, seq_r, Vr)(0)
+    rin = {graph_r.input_edge: xr, graph_r.label_edge: one_hot_rows(lr_, Vr),
+           **graph_r.init_params(seed=0)}
+    ntx_exec.COUNTER.reset()
+    ref = train_graph(graph_r, 1, lambda _i: (xr, lr_), backend="reference", program=prog_r,
+                      params=graph_r.init_params(seed=0), device=device)
+    counts = (ntx_exec.COUNTER.launches, ntx_exec.COUNTER.plain_calls)
+    assert counts == (prog_r.n_commands, 0), counts
+    got = ref["first_outputs"]
+    t0 = time.perf_counter()
+    want = run_reference(prog_r, rin, device="cpu")
+    plain_r = (time.perf_counter() - t0) * 1e3
+    tor = run_torch(prog_r, rin, device=device)
+    same = sorted(k for k in want if torch.equal(got[k].cpu(), want[k]))
+    which = ("none: vexp is expf on the card" if not same else "all" if len(same) == len(want)
+             else ", ".join(same))
+    units = max((max_abs(got[k].cpu(), want[k])
+                 / (TOL["atol"] + TOL["rtol"] * float(want[k].abs().max())) for k in want))
+    print(f"  reduced reference step on ntx_exec ({counts[0]} launches, modes "
+          f"{table['per_mode']}): vs the plain interpreter, {len(same)} of {len(want)} outputs "
+          f"bit-identical ({which}), "
+          f"worst max_abs {max(max_abs(got[k].cpu(), want[k]) for k in want):.3e}")
+    for k, v in want.items():
+        torch.testing.assert_close(got[k].cpu(), v, **TOL, msg=f"ntx_exec vs plain {k}")
+        torch.testing.assert_close(tor[k], got[k], **REF_BAND, msg=f"run_torch vs ntx_exec {k}")
+    print(f"  ... within rtol {TOL['rtol']} / atol {TOL['atol']} (worst {units:.4f} of atol + "
+          f"rtol max|plain|); run_torch vs the reference step within rtol {REF_BAND['rtol']} / "
+          f"atol {REF_BAND['atol']}")
+    rin_dev = {k: torch.as_tensor(v, device=device) for k, v in rin.items()}
+    step_r = lambda: run_reference(prog_r, rin_dev, device=device)  # noqa: E731
+    ms_r = time_ms(step_r, iters=5, warmup=1)
+    dev_r = device_ms(step_r, iters=2)
+    bnd_r, by_r = bound_ms(*program_work(prog_r))
+    print(f"  on {card}: reduced reference step on ntx_exec {ms_r:.3f} ms by events, {dev_r:.3f} "
+          f"ms device; the plain interpreter {plain_r:.1f} ms on the host's CPU; bound "
+          f"{bnd_r:.6f} ms ({by_r})")
+
+    lm_b2 = {"launches": step_counts["streaming_matmul"][0] * LM_STEPS,
+             "entries_per_step": step_counts["streaming_matmul"][2],
+             "ms": mm["ms"], "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
+             "bound_by": mm_by, "library_ms": mm["library_ms"], "device_ms": gemm_dev}
+    lm_b1 = {"launches": LM_STEPS * LM_FUSION[0], "entries_per_step": {fused.SMEM: LM_FUSION[0]},
+             "ms": t_reg, "plain_ms": t_reg_plain, "bound_ms": reg_bnd, "bound_by": reg_by,
+             "library_ms": t_reg_lib, "device_ms": region_dev}
+    if "ntx_exec" in smoke.kernels:
+        smoke.kernels["ntx_exec"]["lm_route"] = {
+            "launches": counts[0], "ms": ms_r, "device_ms": dev_r, "plain_ms": plain_r,
+            "plain_device": "cpu", "bound_ms": bnd_r, "bound_by": by_r, "library_ms": None,
+            "max_abs_err": max(max_abs(got[k].cpu(), want[k]) for k in want),
+            "at": f"reduced Qwen1.5-0.5B LM step, batch {batch_r}, seq {seq_r}, "
+                  f"{prog_r.n_commands} commands"}
+    for name, info in (("streaming_matmul", lm_b2), ("fused_region", lm_b1)):
+        if name in smoke.kernels:
+            smoke.kernels[name]["lm_route"] = {
+                **info, "max_abs_err": max_err, "gate_worst": readings[worst],
+                "at": f"Qwen1.5-0.5B full width, batch {LM_BATCH}, seq {LM_SEQ}, one step",
+                "step_ms": ms, "step_device_ms": dev, "step_wall_ms": wall}
+
+
 def main() -> int:
     import torch
 
@@ -2770,6 +3152,7 @@ def main() -> int:
         smoke.phase("main path", main_path, smoke, device)
         smoke.phase("ntx program path", ntx_program_path, smoke, device)
         smoke.phase("obs and timing model", obs_and_timing, device)
+        smoke.phase("LM graph route", lm_graph_route, smoke, device)
         smoke.phase("ssd_scan vs plain", check_ssd, smoke, device)
         if "ssd_scan" in smoke.kernels:
             smoke.phase("prefill path", prefill_path, smoke, device)

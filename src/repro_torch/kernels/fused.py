@@ -38,6 +38,13 @@ The body has two C entries, picked by shape alone (:func:`entry`):
 The stage table is compiled once per (spec, device) and kept in a device
 int32 tensor; each call only fills a small table of buffer pointers,
 passed to the kernels by value.
+
+An update-only region (the LM graphs' regions: SGD updates alone, no body
+stage) has an empty body table: both entries skip the body launch and run
+the epilogue alone, one thread per parameter element, with no cluster to
+size. The epilogue indexes elements with 32-bit ints, so a parameter may
+hold at most :data:`MAX_EPI_NUMEL` elements (the Qwen head's 155,582,464
+is about 7 % of it).
 """
 
 from __future__ import annotations
@@ -264,6 +271,8 @@ OP_POOL_FWD, OP_POOL_DX = 12, 13
 OP_XENT_DX = 14
 REC = 16  # ints per body record: op, a, b, out, 10 static ints, 0, scratch slot
 EPI_REC = 8  # ints per epilogue record
+EPI_THREADS = 256  # threads per epilogue block (csrc/fused_region.cu)
+MAX_EPI_NUMEL = 2**31 - 1 - EPI_THREADS  # the epilogue's int element index and grid size
 MAX_BUFS = 64  # RegionBufs capacity in the kernel source
 BODY_THREADS = 512
 # the shared-memory entry (keep in sync with csrc/fused_region.cu):
@@ -502,6 +511,10 @@ def compile_region(region, input_shapes: dict) -> CompiledRegion:
         ]
     if len(buffers) > MAX_BUFS:
         raise ValueError(f"{region.label} needs {len(buffers)} buffers > {MAX_BUFS}")
+    big = max(epilogue[::EPI_REC], default=0)
+    if big > MAX_EPI_NUMEL:
+        raise ValueError(f"{region.label}: a parameter of {big} elements passes the "
+                         f"epilogue's 32-bit index ({MAX_EPI_NUMEL})")
     slots, modes, scratch, smem, live = smem_layout(buffers, body)
     buffers = [Buffer(b.kind, b.name, b.shape, b.batched, b.offset, slots[i], modes[i])
                for i, b in enumerate(buffers)]
@@ -653,9 +666,10 @@ class RegionKernel:
         self.body = torch.tensor(compiled.body or [0], dtype=torch.int32, device=device)
         self.epilogue = torch.tensor(compiled.epilogue or [0], dtype=torch.int32, device=device)
         self.entry = entry(compiled)
+        # an update-only region launches no body, so it has no cluster to size
         self.cluster = (cluster_size(compiled.region.batch,
                                      active_clusters(4 * compiled.smem, device))
-                        if self.entry == SMEM else 1)
+                        if self.entry == SMEM and compiled.n_stages else 1)
         # what each launch passes that does not change from call to call
         bufs = compiled.buffers
         n = len(bufs)

@@ -1,12 +1,17 @@
 """Training driver of the port: ``python -m repro_torch.launch.train --backend ntx``.
 
-Counterpart of ``repro/launch/train.py``'s ``run_ntx_cnn`` and the ntx
-branch of its CLI: lower the paper's small CNN to one NTX program per step
-(printed as blocks, commands, peak TCDM against the budget and spills),
-then train it with every step one pass of the torch executor — fused
-region kernels by default (the fusion plan's coverage of the program's
-commands is printed), per-node streaming matmuls with ``--no-fuse``. Runs
-on the CUDA device unless ``--device cpu`` is given.
+Counterpart of ``repro/launch/train.py``'s ``run_ntx_cnn``, ``run_ntx_lm``
+and the ntx branch of its CLI: lower the paper's small CNN — or, with
+``--model``, a decoder-only transformer built from a config of
+:mod:`repro_torch.configs` (``--reduced`` for the smoke-scale one) — to one
+NTX program per step (printed as blocks, commands, peak TCDM against the
+budget and spills; the LM also prints the timing model's offloads and
+cycles), then train it with every step one pass of the torch executor —
+fused region kernels by default (the fusion plan's coverage of the
+program's commands is printed), per-node streaming matmuls with
+``--no-fuse``. ``--check-grads`` holds the LM's gradients against
+``torch.autograd`` of a plain graph oracle. Runs on the CUDA device unless
+``--device cpu`` is given.
 
 ``--metrics OUT.jsonl`` writes one JSON record per step (loss, wall
 seconds, the step's counters: the program's closed-form offload, cycle and
@@ -23,16 +28,32 @@ import contextlib
 
 import numpy as np
 
+import torch
+
 from repro_torch import obs
-from repro_torch.kernels.ops import resolve_device
+from repro_torch.kernels.ops import resolve_device, strict_fp32
 from repro_torch.lower import (
+    AttentionSpec,
+    EmbeddingSpec,
+    LayerNormSpec,
+    MatmulSpec,
+    NetworkGraph,
     PlanCache,
+    PosEmbedSpec,
+    ReluSpec,
+    ResidualAddSpec,
     frequency_band_batches,
+    lm_token_batches,
     lower_training_step,
+    one_hot_rows,
     paper_cnn_graph,
     run_timing,
+    run_torch,
     train_graph,
 )
+
+#: the CLI's learning rate for --model (the JAX CLI's --lr default)
+LM_LR = 3e-3
 
 
 def run_ntx_cnn(steps: int, batch: int, img: int, *, n_clusters: int = 16,
@@ -102,11 +123,202 @@ def run_ntx_cnn(steps: int, batch: int, img: int, *, n_clusters: int = 16,
     return res
 
 
+def _dag_oracle_loss(graph, p: dict, x: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
+    """Any DAG NetworkGraph in plain torch, differentiable by autograd — the
+    ``--check-grads`` oracle (``repro/launch/train.py::_dag_oracle_loss``)."""
+    acts = {graph.input_edge: x}
+    for node in graph.nodes:
+        s = node.spec
+        a = acts[node.in_edge]
+        if isinstance(s, (MatmulSpec, EmbeddingSpec)):
+            y = a @ p[node.param]
+        elif isinstance(s, ReluSpec):
+            y = torch.relu(a)
+        elif isinstance(s, LayerNormSpec):
+            mu = a.mean(dim=-1, keepdim=True)
+            var = ((a - mu) ** 2).mean(dim=-1, keepdim=True)
+            w = p[node.param]
+            y = (a - mu) * torch.rsqrt(var + s.eps) * w[0] + w[1]
+        elif isinstance(s, ResidualAddSpec):
+            y = a + acts[node.aux_edges[0]]
+        elif isinstance(s, PosEmbedSpec):
+            y = (a.reshape(s.batch, s.seq, s.d) + p[node.param][None]).reshape(-1, s.d)
+        elif isinstance(s, AttentionSpec):
+            D, S = s.d, s.seq
+            qkv = a.reshape(-1, S, 3 * D)
+
+            def heads(m, s=s, S=S):
+                return m.reshape(m.shape[0], S, s.n_heads, s.head_dim).transpose(1, 2)
+
+            q, k, v = (heads(qkv[..., i * D:(i + 1) * D]) for i in range(3))
+            sc = torch.einsum("bhid,bhjd->bhij", q, k) * s.scale
+            keep = torch.tril(torch.ones((S, S), dtype=a.dtype, device=a.device)) > 0
+            mask = torch.where(keep, 0.0, -1e9).to(a.dtype)
+            pr = torch.softmax(sc + mask, dim=-1)
+            ctx = torch.einsum("bhij,bhjd->bhid", pr, v)
+            y = ctx.transpose(1, 2).reshape(-1, D)
+        else:
+            raise TypeError(f"no oracle rule for {type(s).__name__}")
+        acts[node.out_edge] = y
+    z = acts[graph.logits_edge]
+    return -torch.mean(torch.sum(torch.log_softmax(z, dim=-1) * onehot, dim=1))
+
+
+def check_lm_grads(graph, program, x, labels, *, fuse: bool = True, device=None,
+                   cache=None) -> float:
+    """One step of ``program`` on the torch executor at the initial
+    parameters, every ``d_<p>`` against ``torch.autograd.grad`` of
+    :func:`_dag_oracle_loss` (TF32 off) at ``rtol=1e-4, atol=1e-5``; raises
+    SystemExit naming the first parameter outside. Returns the worst
+    max |got - want| / max |want| over the parameters."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        strict_fp32()
+    onehot = one_hot_rows(labels, graph.loss.classes)
+    params = graph.init_params(seed=0)
+    inputs = {graph.input_edge: x, graph.label_edge: onehot, **params}
+    outs = run_torch(program, inputs, fuse=fuse, device=dev, cache=cache)
+    tp = {k: torch.tensor(v, device=dev, requires_grad=True) for k, v in params.items()}
+    loss = _dag_oracle_loss(graph, tp, torch.as_tensor(x, device=dev),
+                            torch.as_tensor(onehot, device=dev))
+    names = list(graph.param_shapes())
+    grads = torch.autograd.grad(loss, [tp[p] for p in names])
+    worst = 0.0
+    for p, want in zip(names, grads):
+        got = outs[f"d_{p}"].detach().double()
+        want = want.detach().double()
+        rel = float((got - want).abs().max() / (want.abs().max() + 1e-12))
+        worst = max(worst, rel)
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+            raise SystemExit(f"gradient check FAILED for {p}: rel err {rel:.2e}")
+    return worst
+
+
+def run_ntx_lm(model: str, steps: int, batch: int, seq: int, *, n_clusters: int = 16,
+               lr: float = 0.05, reduced: bool = True, mesh: str | None = None,
+               fuse: bool = True, device=None, metrics: str | None = None,
+               trace: str | None = None, check_grads: bool = False) -> dict:
+    """Train a decoder-only transformer, every step one compiled NtxProgram.
+
+    The named config of :mod:`repro_torch.configs` (reduced to smoke scale
+    with ``reduced``, the default; the full config otherwise) is built into
+    a DAG training graph by :meth:`NetworkGraph.from_model_config` —
+    embedding, learned positions, pre-LN attention + FFN blocks with
+    residual fan-out, final norm, head — and trained on the synthetic
+    next-token task of :func:`~repro_torch.lower.lm_token_batches` through
+    the torch executor: the matmuls and the embedding on the streaming
+    matmul kernel, the SGD updates of the matmul weights as update-only
+    regions on the fused-region kernel, the rest plain. The block-engine
+    timing run prints the step's offloads, commands and NTX cycles.
+
+    ``check_grads`` then runs one step at the initial parameters and holds
+    every ``d_<param>`` against ``torch.autograd`` of a plain oracle
+    (:func:`check_lm_grads`). ``mesh`` is refused: the mesh executor is not
+    ported (ROADMAP A6). Returns the :func:`~repro_torch.lower.train_graph`
+    result plus the plan cache (``"cache"``), the block-engine result
+    (``"timing"``) and, with ``check_grads``, the worst relative gradient
+    error (``"grad_err"``).
+    """
+    from repro_torch.configs import get_config, reduce_config
+
+    if mesh is not None:
+        raise NotImplementedError("--mesh: the mesh executor (shard_training_step, "
+                                  "time_mesh_step) is not ported yet (ROADMAP A6)")
+    dev = resolve_device(device)
+    cfg = get_config(model)
+    if reduced:
+        cfg = reduce_config(cfg)
+    else:
+        print(f"note: lowering the FULL {cfg.name} config — expect a very large program; "
+              f"--reduced is the smoke-scale path")
+    registry = obs.CounterRegistry() if (metrics or trace) else None
+    collector = obs.TraceCollector() if trace else None
+    reg_ctx = obs.use_registry(registry) if registry is not None else contextlib.nullcontext()
+    col_ctx = obs.use_collector(collector) if collector is not None else contextlib.nullcontext()
+    with reg_ctx, col_ctx:
+        graph = NetworkGraph.from_model_config(cfg, batch=batch, seq=seq, lr=lr)
+        n_params = sum(int(np.prod(s)) for s in graph.param_shapes().values())
+        print(f"ntx LM train-step graph: {graph.name}, {len(graph.nodes)} nodes, {n_params} "
+              f"parameters, batch {batch}, seq {seq}, device {dev}")
+        program = lower_training_step(graph, n_clusters=n_clusters)
+        print(f"ntx LM train-step program ({graph.name}): {len(graph.nodes)} nodes -> "
+              f"{len(program.blocks)} blocks, {program.n_commands} commands, "
+              f"peak TCDM {program.meta['peak_tcdm_bytes']} / "
+              f"{program.meta['tcdm_budget_bytes']} B "
+              f"({len(program.meta['spilled'])} spilled)")
+        with obs.use_registry(None):
+            timed = run_timing(program, n_clusters=n_clusters, engine="block")
+        print(f"timing engine: {program.n_offloads} offloads, {program.n_commands} commands, "
+              f"{timed.total_cycles} cycles/step on {n_clusters} clusters (NTX cycle model)")
+        batch_fn = lm_token_batches(np.random.RandomState(0), batch, seq, cfg.vocab_size)
+        cache = PlanCache()
+        res = train_graph(graph, steps, batch_fn, program=program,
+                          params=graph.init_params(seed=0), fuse=fuse, device=dev,
+                          cache=cache, metrics_path=metrics)
+        if collector is not None:
+            with obs.use_registry(None):
+                result = run_timing(program, n_clusters=n_clusters)
+            collector.add_cluster_lanes(program, result, n_clusters, pid="hmc0")
+            exec_evs = [e for e in collector.events if e.get("cat") == "exec"]
+            collector.link_flows(exec_evs, [])
+            print(f"merged trace: {collector.save(trace)} ({len(collector.events)} events; "
+                  f"modeled step {result.total_cycles} NTX cycles) — open in "
+                  "https://ui.perfetto.dev or chrome://tracing")
+    losses = res["losses"]
+    for i, (loss, w) in enumerate(zip(losses, res["walls"])):
+        print(f"step {i:5d} loss={loss:.4f} ({w*1e3:.0f} ms)", flush=True)
+    print(f"plan cache: {len(cache)} plans "
+          f"({cache.hits} hits / {cache.misses} misses over {cache.calls} calls)")
+    fusion = res["fusion"]
+    if fusion is not None:
+        print(f"fusion: {fusion.n_regions} regions + "
+              f"{len(fusion.fallback_steps)} fallback steps per step, covering "
+              f"{fusion.fused_commands} of {fusion.total_commands} program commands "
+              f"({100 * fusion.coverage:.2f} %) — token-row graphs fuse update "
+              f"epilogues only")
+    else:
+        print("fusion: disabled (--no-fuse) — per-node plan dispatch")
+    if check_grads:
+        # the next draw of the run's token stream, as the JAX package's run_ntx_lm takes it
+        x, labels = batch_fn(0)
+        worst = check_lm_grads(graph, res["program"], x, labels, fuse=fuse, device=dev,
+                               cache=cache)
+        res["grad_err"] = worst
+        print(f"gradient check vs torch.autograd: {len(graph.param_shapes())} params OK "
+              f"(worst rel err {worst:.2e})")
+    if metrics:
+        print(f"per-step metrics JSONL: {metrics}")
+    if registry is not None:
+        print(obs.format_hotspots(registry))
+    print(f"done: {steps} LM ntx steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    res["cache"] = cache
+    res["timing"] = timed
+    return res
+
+
 def _cli(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--backend", default="ntx", choices=["ntx"],
-                    help="ntx: train the paper's small CNN through the torch "
-                         "executor (the only backend of the port so far)")
+                    help="ntx: train the paper's small CNN — or, with --model, a "
+                         "decoder-only transformer — through the torch executor "
+                         "(the only backend of the port so far)")
+    ap.add_argument("--model", default=None, metavar="ARCH",
+                    help="instead of the CNN, train a decoder-only transformer built "
+                         "from this config (e.g. qwen1_5_0_5b) by "
+                         "NetworkGraph.from_model_config; the full config unless "
+                         "--reduced")
+    ap.add_argument("--reduced", action="store_true",
+                    help="--model: the smoke-scale config")
+    ap.add_argument("--seq", type=int, default=64, help="--model: sequence length")
+    ap.add_argument("--lr", type=float, default=LM_LR,
+                    help="--model: SGD learning rate (the CNN keeps its own 0.05)")
+    ap.add_argument("--check-grads", action="store_true",
+                    help="--model: after training, run one step and hold every "
+                         "parameter gradient against torch.autograd of a plain "
+                         "graph oracle at rtol 1e-4 / atol 1e-5")
+    ap.add_argument("--mesh", default=None, metavar="RxC",
+                    help="shard the step across a mesh of HMCs: not ported yet "
+                         "(ROADMAP A6), refused")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--img", type=int, default=16, help="CNN input image size")
@@ -123,6 +335,16 @@ def _cli(argv=None):
                     help="write the merged chrome trace (host spans, modeled "
                          "cluster lanes)")
     args = ap.parse_args(argv)
+    if args.mesh is not None:
+        raise SystemExit("--mesh: the mesh executor is not ported yet (ROADMAP A6)")
+    if args.model is not None:
+        res = run_ntx_lm(args.model, args.steps, args.batch, args.seq,
+                         n_clusters=args.n_clusters, lr=args.lr, reduced=args.reduced,
+                         fuse=not args.no_fuse, device=args.device, metrics=args.metrics,
+                         trace=args.trace, check_grads=args.check_grads)
+        if len(res["losses"]) >= 3 and not res["losses"][-1] < res["losses"][0]:
+            raise SystemExit("ntx LM training did not decrease the loss")
+        return
     res = run_ntx_cnn(args.steps, args.batch, args.img, n_clusters=args.n_clusters,
                       fuse=not args.no_fuse, device=args.device,
                       metrics=args.metrics, trace=args.trace)

@@ -5,6 +5,8 @@
     outs  = run_reference(prog, inputs)           # command by command (ntx_exec)
     outs  = run_torch(graph, inputs)              # region kernels (fused)
     res   = run_timing(prog, n_clusters=16)       # the NTX cycle model
+
+    lm = NetworkGraph.from_model_config(cfg, batch=2, seq=64)  # a decoder-only LM DAG
 """
 
 from repro_torch.lower.executors import PlanCache, run_reference, run_timing, run_torch
@@ -21,7 +23,9 @@ from repro_torch.lower.graph import (
     NetworkGraph,
     edge_consumers,
     frequency_band_batches,
+    lm_token_batches,
     lower_training_step,
+    one_hot_rows,
     paper_cnn_graph,
     softmax_xent_loss,
     train_graph,
@@ -39,12 +43,17 @@ from repro_torch.lower.ir import (
 )
 from repro_torch.lower.rules import (
     PASSES,
+    AttentionSpec,
     BiasSpec,
     Conv2dSpec,
+    EmbeddingSpec,
     FlattenSpec,
+    LayerNormSpec,
     MatmulSpec,
     MaxPool2dSpec,
+    PosEmbedSpec,
     ReluSpec,
+    ResidualAddSpec,
     SgdUpdateSpec,
     SoftmaxXentSpec,
     lower,
@@ -54,12 +63,14 @@ from repro_torch.lower.rules import (
 )
 
 __all__ = [
-    "ELEM_BYTES", "PASSES", "BiasSpec", "CommandBlock", "Conv2dSpec", "DesignPoint",
-    "FlattenSpec", "FusionPlan", "GraphNode", "LivenessAllocator", "MatmulSpec",
-    "MaxPool2dSpec", "NS_DESIGN", "NTX_DESIGN", "NetworkGraph", "NtxProgram", "PlanCache",
-    "RegionAllocator", "RegionSpec", "ReluSpec", "Segment", "SgdUpdateSpec",
-    "SoftmaxXentSpec", "Stage", "TensorRegion", "edge_consumers", "frequency_band_batches",
-    "lower", "lower_layer", "lower_training_step", "paper_cnn_graph", "plan_fusion",
+    "ELEM_BYTES", "PASSES", "AttentionSpec", "BiasSpec", "CommandBlock", "Conv2dSpec",
+    "DesignPoint", "EmbeddingSpec", "FlattenSpec", "FusionPlan", "GraphNode",
+    "LayerNormSpec", "LivenessAllocator", "MatmulSpec", "MaxPool2dSpec", "NS_DESIGN",
+    "NTX_DESIGN", "NetworkGraph", "NtxProgram", "PlanCache", "PosEmbedSpec",
+    "RegionAllocator", "RegionSpec", "ReluSpec", "ResidualAddSpec", "Segment",
+    "SgdUpdateSpec", "SoftmaxXentSpec", "Stage", "TensorRegion", "edge_consumers",
+    "frequency_band_batches", "lm_token_batches", "lower", "lower_layer",
+    "lower_training_step", "one_hot_rows", "paper_cnn_graph", "plan_fusion",
     "register_lowering", "run_reference", "run_timing", "run_torch", "softmax_xent_loss",
     "step_schedule", "supported_matrix", "train_graph",
 ]

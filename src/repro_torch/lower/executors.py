@@ -27,14 +27,18 @@ books the program's closed-form counts (and :func:`run_torch` its plan-cache
 and fusion counters); with a :class:`~repro_torch.obs.TraceCollector`
 installed, :func:`run_torch` wraps each plan call in a host span.
 
-Per-node conv and matmul passes run on the streaming matmul kernel
-(:mod:`repro_torch.kernels.streaming`). There is no per-image vmap: conv
-passes put the batch straight into the matmul M dimension, and conv dW
-contracts over ``B*oh*ow`` in one product instead of summing per-image dWs.
-Pool, relu, bias, the softmax-CE gradient and the SGD update are plain
-torch, as they are plain jnp in the JAX executor; max-pool dX routes each
-window's gradient to its first maximal tap, as the fused kernel does. Gradients are computed
-stage by stage; nothing here uses autograd.
+Per-node conv and matmul passes, and the LM embedding's forward and dW,
+run on the streaming matmul kernel (:mod:`repro_torch.kernels.streaming`).
+There is no per-image vmap: conv passes put the batch straight into the
+matmul M dimension, and conv dW contracts over ``B*oh*ow`` in one product
+instead of summing per-image dWs; attention runs over ``(rows/S, S, 3D)``
+in one batched function. Pool, relu, bias, the softmax-CE gradient, the SGD
+update and the LM's attention, layernorm, residual add and positional
+embedding are plain torch, as they are plain jnp in the JAX executor;
+max-pool dX routes each window's gradient to its first maximal tap, as the
+fused kernel does. Gradients are computed stage by stage by explicit
+formulas (attention's dX recomputes the softmax from qkv); nothing here
+uses autograd.
 """
 
 from __future__ import annotations
@@ -59,12 +63,17 @@ from repro_torch.lower.fuse import (
 from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime import scheduler as rt_sched
 from repro_torch.lower.rules import (
+    AttentionSpec,
     BiasSpec,
     Conv2dSpec,
+    EmbeddingSpec,
     FlattenSpec,
+    LayerNormSpec,
     MatmulSpec,
     MaxPool2dSpec,
+    PosEmbedSpec,
     ReluSpec,
+    ResidualAddSpec,
     SgdUpdateSpec,
     SoftmaxXentSpec,
 )
@@ -132,6 +141,57 @@ def run_timing(
         obs.record_program(reg, program)
         obs.record_schedule(reg, result)
     return result
+
+
+def _attention_probs(x: torch.Tensor, spec: AttentionSpec):
+    """q, k, v as (N, H, S, Dh) and the causal softmax p (N, H, S, S) of
+    qkv rows ``x`` (N, S, 3D), laid out ``[q | k | v]``: scores scaled by
+    ``head_dim**-0.5`` plus the additive -1e9 mask above the diagonal."""
+    n, S, H, Dh, D = x.shape[0], spec.seq, spec.n_heads, spec.head_dim, spec.d
+    q, k, v = (x[..., i * D:(i + 1) * D].reshape(n, S, H, Dh).transpose(1, 2)
+               for i in range(3))
+    sc = torch.matmul(q, k.transpose(-1, -2)) * spec.scale
+    mask = torch.full((S, S), -1e9, dtype=x.dtype, device=x.device).triu(1)
+    return q, k, v, torch.softmax(sc + mask, dim=-1)
+
+
+def attention_fwd(x: torch.Tensor, spec: AttentionSpec) -> torch.Tensor:
+    """Causal multi-head attention of qkv rows (N, S, 3D): context (N, S, D)."""
+    _, _, v, p = _attention_probs(x, spec)
+    return torch.matmul(p, v).transpose(1, 2).reshape(x.shape[0], spec.seq, spec.d)
+
+
+def attention_dx(x: torch.Tensor, dy: torch.Tensor, spec: AttentionSpec) -> torch.Tensor:
+    """d qkv (N, S, 3D) from d context ``dy`` (N, S, D), p recomputed from
+    ``x``: dv = p^T dy, dp = dy v^T, ds = p (dp - rowsum(dp p)) * scale,
+    dq = ds k, dk = ds^T q."""
+    n, S, H, Dh = x.shape[0], spec.seq, spec.n_heads, spec.head_dim
+    q, k, v, p = _attention_probs(x, spec)
+    g = dy.reshape(n, S, H, Dh).transpose(1, 2)
+    dv = torch.matmul(p.transpose(-1, -2), g)
+    dp = torch.matmul(g, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * spec.scale
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    return torch.cat([t.transpose(1, 2).reshape(n, S, spec.d) for t in (dq, dk, dv)], dim=-1)
+
+
+def _layernorm_stats(x: torch.Tensor, eps: float):
+    """(xhat, rstd) over the last dim, with the biased variance."""
+    mu = x.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(((x - mu) ** 2).mean(dim=-1, keepdim=True) + eps)
+    return (x - mu) * rstd, rstd
+
+
+def layernorm_dx(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    """Layernorm input gradient, ``w`` the packed (gamma, beta):
+    (dy g - mean(dy g) - xhat mean(dy g xhat)) rstd."""
+    xhat, rstd = _layernorm_stats(x, eps)
+    dyg = dy * w[0]
+    m1 = dyg.mean(dim=-1, keepdim=True)
+    m2 = (dyg * xhat).mean(dim=-1, keepdim=True)
+    return (dyg - m1 - xhat * m2) * rstd
 
 
 def _plan_callable(spec, pass_: str, device: torch.device):
@@ -218,6 +278,45 @@ def _plan_callable(spec, pass_: str, device: torch.device):
 
             return upd_mom
         return lambda j: {"w_new": j["w"] - lr * j["dw"]}
+
+    if isinstance(spec, AttentionSpec):  # per sequence: x (N, S, 3D), dy (N, S, D)
+        if pass_ == "fwd":
+            return lambda j: {"y": attention_fwd(j["x"], spec)}
+        if pass_ == "dx":
+            return lambda j: {"dx": attention_dx(j["x"], j["dy"], spec)}
+
+    if isinstance(spec, LayerNormSpec):
+        eps = spec.eps
+        if pass_ == "fwd":
+            return lambda j: {"y": _layernorm_stats(j["x"], eps)[0] * j["w"][0] + j["w"][1]}
+        if pass_ == "dw":
+            def ln_dw(j):
+                xhat = _layernorm_stats(j["x"], eps)[0]
+                return {"dw": torch.stack([(j["dy"] * xhat).sum(dim=0), j["dy"].sum(dim=0)])}
+
+            return ln_dw
+        if pass_ == "dx":
+            return lambda j: {"dx": layernorm_dx(j["x"], j["w"], j["dy"], eps)}
+
+    if isinstance(spec, ResidualAddSpec):
+        if pass_ == "fwd":
+            return lambda j: {"y": j["x"] + j["x2"]}
+        if pass_ == "dx":
+            return lambda j: {"dx": j["dy"]}
+
+    if isinstance(spec, EmbeddingSpec):  # one-hot token rows @ the table
+        if pass_ == "fwd":
+            return lambda j: {"y": streaming.streaming_matmul(j["x"], j["w"])}
+        if pass_ == "dw":
+            return lambda j: {"dw": streaming.streaming_matmul(j["x"].T, j["dy"])}
+
+    if isinstance(spec, PosEmbedSpec):  # x, dy (N, S, d)
+        if pass_ == "fwd":
+            return lambda j: {"y": j["x"] + j["w"][None]}
+        if pass_ == "dw":
+            return lambda j: {"dw": j["dy"].sum(dim=0)}
+        if pass_ == "dx":
+            return lambda j: {"dx": j["dy"]}
 
     raise TypeError(f"no torch route for spec {type(spec).__name__} pass {pass_!r}")
 
@@ -417,7 +516,8 @@ def _walk(graph, j, plan, segments, *, keep_grads):
     def exec_step(key):
         name, pass_ = key.split(":")
         if pass_ == "acc":
-            # fan-out accumulate: add_grad already summed the partials
+            # fan-out accumulate: add_grad summed each consumer's dX into
+            # d_<edge> as it landed
             return
         if name == "loss":
             env[f"d_{graph.logits_edge}"] = plan(graph.loss, "dx")(
@@ -440,6 +540,17 @@ def _walk(graph, j, plan, segments, *, keep_grads):
                 y = plan(s, "fwd")({"x": a})["y"]
             elif isinstance(s, FlattenSpec):
                 y = a.reshape(B, s.size)
+            elif isinstance(s, AttentionSpec):  # per sequence over token rows
+                y = plan(s, "fwd")({"x": a.reshape(-1, s.seq, 3 * s.d)})["y"]
+                y = y.reshape(-1, s.d)
+            elif isinstance(s, (LayerNormSpec, EmbeddingSpec)):
+                y = plan(s, "fwd")({"x": a, "w": j[node.param]})["y"]
+            elif isinstance(s, ResidualAddSpec):
+                y = plan(s, "fwd")({"x": a, "x2": env[node.aux_edges[0]]})["y"]
+            elif isinstance(s, PosEmbedSpec):
+                y = plan(s, "fwd")(
+                    {"x": a.reshape(-1, s.seq, s.d), "w": j[node.param]}
+                )["y"].reshape(-1, s.d)
             else:
                 raise TypeError(f"no graph route for {type(s).__name__}")
             env[node.out_edge] = y
@@ -451,6 +562,10 @@ def _walk(graph, j, plan, segments, *, keep_grads):
                 dw = plan(s, "dw")({"a": env[node.in_edge], "dy": g})["dw"]
             elif isinstance(s, BiasSpec):
                 dw = plan(s, "dw")({"dy": g.reshape(-1, s.c)})["db"]
+            elif isinstance(s, (LayerNormSpec, EmbeddingSpec)):
+                dw = plan(s, "dw")({"x": env[node.in_edge], "dy": g})["dw"]
+            elif isinstance(s, PosEmbedSpec):
+                dw = plan(s, "dw")({"dy": g.reshape(-1, s.seq, s.d)})["dw"]
             else:
                 raise TypeError(f"no dW route for {type(s).__name__}")
             env[f"d_{node.param}"] = dw
@@ -479,6 +594,18 @@ def _walk(graph, j, plan, segments, *, keep_grads):
                 gx = g.reshape((B,) + tuple(s.in_shape))
             elif isinstance(s, BiasSpec):  # shape-preserving passthrough
                 gx = g.reshape(env[node.in_edge].shape)
+            elif isinstance(s, AttentionSpec):
+                a_in = env[node.in_edge]
+                gx = plan(s, "dx")(
+                    {"x": a_in.reshape(-1, s.seq, 3 * s.d), "dy": g.reshape(-1, s.seq, s.d)}
+                )["dx"].reshape(a_in.shape)
+            elif isinstance(s, LayerNormSpec):
+                gx = plan(s, "dx")({"x": env[node.in_edge], "w": j[node.param], "dy": g})["dx"]
+            elif isinstance(s, ResidualAddSpec):  # dy flows into both branches
+                gx = plan(s, "dx")({"dy": g})["dx"]
+                add_grad(node.aux_edges[0], gx)
+            elif isinstance(s, PosEmbedSpec):
+                gx = plan(s, "dx")({"dy": g.reshape(-1, s.seq, s.d)})["dx"].reshape(-1, s.d)
             else:
                 raise TypeError(f"no dX route for {type(s).__name__}")
             add_grad(node.in_edge, gx)

@@ -15,6 +15,12 @@ barriers. A GPU has no such budget, so the port plans with ``spilled=()``
 by default; ``spilled=program.meta["spilled"]`` keeps the barrier, and so
 reproduces the JAX plan and its coverage.
 
+LM graphs (attention, layernorm, residual fan-out) carry *token-row*
+activations — ``B*S`` rows, not ``B`` images — which the region kernel's
+per-image layout does not stream, so every activation pass and the loss
+gradient run as per-node steps there; only the SGD update epilogues fuse
+(``fuse.py``'s token-row rule in the JAX package).
+
 One numerical identity makes bwd chains closed: the relu backward mask can
 be taken from the relu *output* (``y > 0`` iff ``x > 0`` for ``y = max(x,
 0)``), so pre-activations never need to escape a forward region.
@@ -26,13 +32,22 @@ from dataclasses import dataclass, field
 
 from repro_torch.lower.ir import NtxProgram
 from repro_torch.lower.rules import (
+    AttentionSpec,
     BiasSpec,
     Conv2dSpec,
+    EmbeddingSpec,
     FlattenSpec,
+    LayerNormSpec,
     MatmulSpec,
     MaxPool2dSpec,
+    PosEmbedSpec,
     ReluSpec,
+    ResidualAddSpec,
 )
+
+#: the LM node specs: their activations are token rows (B*S of them)
+TOKEN_ROW_SPECS = (AttentionSpec, LayerNormSpec, EmbeddingSpec, PosEmbedSpec,
+                   ResidualAddSpec)
 
 
 @dataclass(frozen=True)
@@ -184,13 +199,13 @@ def _step_io(graph, node, pass_: str, *, fused: bool):
         )
     s = node.spec
     if pass_ == "fwd":
-        reads = [node.in_edge]
+        reads = [node.in_edge, *node.aux_edges]
         if node.param is not None:
             reads.append(node.param)
         return reads, [node.out_edge]
     if pass_ == "dw":
         p = node.param
-        if isinstance(s, BiasSpec):
+        if isinstance(s, (BiasSpec, PosEmbedSpec)):
             return [f"d_{node.out_edge}"], [f"d_{p}"]
         return [node.in_edge, f"d_{node.out_edge}"], [f"d_{p}"]
     if pass_ == "upd":
@@ -210,7 +225,13 @@ def _step_io(graph, node, pass_: str, *, fused: bool):
         return [node.in_edge, g], [f"d_{node.in_edge}"]
     if isinstance(s, (Conv2dSpec, MatmulSpec)):
         return [g, node.param], [f"d_{node.in_edge}"]
-    return [g], [f"d_{node.in_edge}"]  # bias / flatten reshape
+    if isinstance(s, AttentionSpec):  # p is recomputed from qkv
+        return [node.in_edge, g], [f"d_{node.in_edge}"]
+    if isinstance(s, LayerNormSpec):  # the statistics are recomputed from x
+        return [node.in_edge, node.param, g], [f"d_{node.in_edge}"]
+    if isinstance(s, ResidualAddSpec):  # dy flows into both branches
+        return [g], [f"d_{node.in_edge}", f"d_{node.aux_edges[0]}"]
+    return [g], [f"d_{node.in_edge}"]  # bias / flatten reshape, posembed
 
 
 def _touches_spill(graph, node, pass_: str, spilled: set[str]) -> bool:
@@ -274,22 +295,26 @@ def plan_fusion(
     unbatched = set()
     for p in graph.param_shapes():
         unbatched |= {p, f"v_{p}", f"d_{p}", f"{p}_new", f"v_{p}_new"}
+    # token-row graphs: only the update epilogues (no streamed edges) fuse
+    token_rows = any(isinstance(n.spec, TOKEN_ROW_SPECS) for n in graph.nodes)
 
     # 1. classify every step: fusable or per-node fallback
     fusable: dict[str, bool] = {}
     for key in keys:
         name, pass_ = key.split(":")
         if name == "loss":
-            fusable[key] = not _touches_spill(graph, None, "dx", spilled)
+            fusable[key] = not token_rows and not _touches_spill(graph, None, "dx", spilled)
             continue
         node = nodes.get(name)
         if node is None:
             # fan-out accumulate steps ({edge}:acc) have no fusion rule
             fusable[key] = False
             continue
-        fusable[key] = _fusable(
-            node, pass_, fuse_updates=fuse_updates
-        ) and not _touches_spill(graph, node, pass_, spilled)
+        fusable[key] = (
+            _fusable(node, pass_, fuse_updates=fuse_updates)
+            and (pass_ == "upd" or not token_rows)
+            and not _touches_spill(graph, node, pass_, spilled)
+        )
 
     # 2. greedy contiguous grouping; groups not worth a kernel demote to
     #    per-node fallbacks before the escape analysis sees them
@@ -311,6 +336,8 @@ def plan_fusion(
     for key in keys:
         name, pass_ = key.split(":")
         if pass_ == "acc":
+            # the walk sums each consumer's dX into d_<edge> as it lands,
+            # so the accumulate step reads and writes nothing there
             io[key] = ([], [])
             continue
         node = nodes.get(name) if name != "loss" else None

@@ -1,16 +1,18 @@
 """The training-graph IR, its NTX command compiler and the training loop.
 
-Counterpart of ``repro/lower/graph.py`` for the CNN rule set:
-:class:`GraphNode`, :class:`NetworkGraph` (``chain``, ``param_shapes``,
-``init_params``, ``logits_edge``), :func:`edge_consumers`,
-:func:`lower_training_step` (one :class:`~repro_torch.lower.ir.NtxProgram`
-per training step: per-layer programs relocated into liveness-allocated
-TCDM regions, per-image passes with one outer driver level over the batch,
-spill / fill blocks around what does not fit the budget),
-:func:`paper_cnn_graph`, :func:`frequency_band_batches`,
-:func:`softmax_xent_loss` and :func:`train_graph`, which runs each step on
-the torch executor (region kernels and per-node steps, walking the graph)
-or on the command interpreter (the compiled program, command by command).
+Counterpart of ``repro/lower/graph.py``: :class:`GraphNode`,
+:class:`NetworkGraph` (``chain``, ``from_model_config`` — the decoder-only
+LM as a DAG with residual fan-out — ``param_shapes``, ``init_params``,
+``logits_edge``), :func:`edge_consumers`, :func:`lower_training_step` (one
+:class:`~repro_torch.lower.ir.NtxProgram` per training step: per-layer
+programs relocated into liveness-allocated TCDM regions, per-image and
+per-sequence passes with one outer driver level over the batch, one
+accumulate step per fan-out edge, spill / fill blocks around what does not
+fit the budget), :func:`paper_cnn_graph`, :func:`frequency_band_batches`,
+:func:`lm_token_batches`, :func:`softmax_xent_loss` and
+:func:`train_graph`, which runs each step on the torch executor (region
+kernels and per-node steps, walking the graph) or on the command
+interpreter (the compiled program, command by command).
 
 ``init_params`` draws from the same numpy RNG calls as the JAX package, so
 both give bit-identical parameter arrays for the same seed.
@@ -41,12 +43,17 @@ from repro_torch.lower.ir import (
     TensorRegion,
 )
 from repro_torch.lower.rules import (
+    AttentionSpec,
     BiasSpec,
     Conv2dSpec,
+    EmbeddingSpec,
     FlattenSpec,
+    LayerNormSpec,
     MatmulSpec,
     MaxPool2dSpec,
+    PosEmbedSpec,
     ReluSpec,
+    ResidualAddSpec,
     SgdUpdateSpec,
     SoftmaxXentSpec,
     lower,
@@ -99,6 +106,30 @@ def _shape_after(spec, cur: tuple[int, ...]) -> tuple[int, ...]:
         if cur[-1] != spec.c:
             raise ValueError(f"bias expects {spec.c} channels, got {cur}")
         return cur
+    if isinstance(spec, AttentionSpec):
+        if cur != (spec.seq, 3 * spec.d):
+            raise ValueError(
+                f"attention expects {(spec.seq, 3 * spec.d)}, got {cur}"
+            )
+        return (spec.seq, spec.d)
+    if isinstance(spec, LayerNormSpec):
+        if not cur or cur[-1] != spec.d:
+            raise ValueError(f"layernorm expects last dim {spec.d}, got {cur}")
+        return cur
+    if isinstance(spec, ResidualAddSpec):
+        if math.prod(spec.shape) % math.prod(cur) != 0:
+            raise ValueError(f"residual shape {spec.shape} mismatches {cur}")
+        return cur
+    if isinstance(spec, EmbeddingSpec):
+        if not cur or cur[-1] != spec.vocab:
+            raise ValueError(
+                f"embedding expects one-hot last dim {spec.vocab}, got {cur}"
+            )
+        return cur[:-1] + (spec.d,)
+    if isinstance(spec, PosEmbedSpec):
+        if cur != (spec.seq, spec.d):
+            raise ValueError(f"posembed expects {(spec.seq, spec.d)}, got {cur}")
+        return cur
     raise TypeError(f"no graph rule for {type(spec).__name__}")
 
 
@@ -109,12 +140,19 @@ def _param_shape(spec) -> tuple[int, ...] | None:
         return (spec.k, spec.n)
     if isinstance(spec, BiasSpec):
         return (spec.c,)
+    if isinstance(spec, LayerNormSpec):
+        return (2, spec.d)  # row 0 = gamma, row 1 = beta
+    if isinstance(spec, EmbeddingSpec):
+        return (spec.vocab, spec.d)
+    if isinstance(spec, PosEmbedSpec):
+        return (spec.seq, spec.d)
     return None
 
 
 @dataclass
 class NetworkGraph:
-    """A sequential training graph: layer nodes + loss + update policy."""
+    """A training graph (a chain, or the DAG of a decoder-only LM): layer
+    nodes + loss + update policy."""
 
     name: str
     batch: int
@@ -181,6 +219,78 @@ class NetworkGraph:
             lr=lr, momentum=momentum,
         )
 
+    @classmethod
+    def from_model_config(
+        cls,
+        cfg,
+        *,
+        batch: int = 2,
+        seq: int = 8,
+        lr: float = 0.05,
+        momentum: float = 0.0,
+    ) -> "NetworkGraph":
+        """Build a decoder-only transformer training DAG from a
+        :class:`repro_torch.models.config.ModelConfig`.
+
+        Per token position the input is a one-hot row over the vocabulary
+        (the near-memory controller streams token indices as one-hot MAC
+        operands), so the input edge is ``(seq, vocab)`` per sequence and
+        the label edge is the next-token one-hot at ``(batch*seq, vocab)``.
+
+        The lowered family is the dense pre-LN block NTX speaks: embedding
+        + learned positions, then per layer LN → qkv matmul → causal MHA →
+        out-proj → residual, LN → FFN (relu) → residual, with a final LN
+        and vocab head. Config fields outside that family (RMS-vs-layer
+        norm, swiglu, GQA ``n_kv_heads``, MoE/SSM mixers) map onto it —
+        use :func:`repro_torch.configs.reduce_config` plus ``cfg.with_(...)``
+        overrides for test-sized graphs.
+        """
+        V, d, F = cfg.vocab_size, cfg.d_model, cfg.d_ff
+        H = cfg.n_heads
+        Dh = cfg.head_dim or d // H
+        B, S = batch, seq
+        rows = B * S
+        eps = cfg.norm_eps
+        nodes: list[GraphNode] = []
+        edge, cur = cls.input_edge, (S, V)
+
+        def add(name, spec, *, aux: tuple[str, ...] = ()):
+            nonlocal edge, cur
+            nxt = _shape_after(spec, cur)
+            param = None
+            if _param_shape(spec) is not None:
+                param = f"w_{name}"
+            nodes.append(
+                GraphNode(
+                    name=name, spec=spec, in_edge=edge, out_edge=f"a_{name}",
+                    param=param, in_shape=cur, out_shape=nxt, aux_edges=aux,
+                )
+            )
+            edge, cur = f"a_{name}", nxt
+
+        add("emb", EmbeddingSpec(rows=rows, vocab=V, d=d))
+        add("pos", PosEmbedSpec(batch=B, seq=S, d=d))
+        for i in range(cfg.n_layers):
+            skip = edge
+            add(f"ln1_{i}", LayerNormSpec(rows, d, eps))
+            add(f"qkv_{i}", MatmulSpec(rows, 3 * H * Dh, d))
+            add(f"attn_{i}", AttentionSpec(S, H, Dh))
+            add(f"proj_{i}", MatmulSpec(rows, d, H * Dh))
+            add(f"res1_{i}", ResidualAddSpec((rows, d)), aux=(skip,))
+            skip = edge
+            add(f"ln2_{i}", LayerNormSpec(rows, d, eps))
+            add(f"fc1_{i}", MatmulSpec(rows, F, d))
+            add(f"relu_{i}", ReluSpec((S, F)))
+            add(f"fc2_{i}", MatmulSpec(rows, d, F))
+            add(f"res2_{i}", ResidualAddSpec((rows, d)), aux=(skip,))
+        add("lnf", LayerNormSpec(rows, d, eps))
+        add("head", MatmulSpec(rows, V, d))
+        return cls(
+            name=f"lm_{cfg.name}", batch=B, input_shape=(S, V), nodes=nodes,
+            loss=SoftmaxXentSpec(batch=rows, classes=V),
+            lr=lr, momentum=momentum,
+        )
+
     @property
     def logits_edge(self) -> str:
         return self.nodes[-1].out_edge
@@ -198,7 +308,11 @@ class NetworkGraph:
         for node in self.param_nodes():
             pname = node.param
             shape = _param_shape(node.spec)
-            if pname.startswith("b_"):
+            if isinstance(node.spec, LayerNormSpec):
+                w = np.zeros(shape, np.float32)
+                w[0] = 1.0  # gamma row; beta row stays zero
+                out[pname] = w
+            elif pname.startswith("b_"):
                 out[pname] = np.zeros(shape, np.float32)
             else:
                 out[pname] = (rng.randn(*shape) * 0.1).astype(np.float32)
@@ -416,7 +530,7 @@ def lower_training_step(
     keep_grads: bool = True,
 ) -> NtxProgram:
     """Compile ``graph`` into one whole-train-step :class:`NtxProgram`
-    (``repro/lower/graph.py::lower_training_step``, the CNN rule set).
+    (``repro/lower/graph.py::lower_training_step``).
 
     Block order: forward node by node, the loss gradient, then per node in
     reverse — dW, the parameter's SGD update (freeing the gradient early),
@@ -428,25 +542,36 @@ def lower_training_step(
     ``meta["spilled"]``).
 
     Per-layer programs are relocated into the graph's regions; per-image
-    passes (conv, pool) gain one outer driver level over the batch. The LM
-    nodes and the DAG fan-out accumulate steps are not ported yet (ROADMAP
-    A5) and raise ``NotImplementedError``.
+    passes (conv, pool) and per-sequence ones (attention) gain one outer
+    driver level over the batch. An edge with several consumers (the LM's
+    residual fan-out) gets each consumer's dX as a private partial
+    ``d_<edge>@<consumer>`` and one ``<edge>:acc`` step that sums them
+    after the last contribution.
     """
     B = graph.batch
     mom = graph.momentum
     steps: list[_Step] = []
     param_edges = set(graph.param_shapes())
     static: set[str] = set(param_edges)
-    for node in graph.nodes:
-        if type(node.spec).__name__ in rules.LM_SPECS:
-            raise NotImplementedError(
-                f"node {node.name!r}: the {type(node.spec).__name__} lowering is not "
-                f"ported yet (ROADMAP A5)")
-    for edge, cs in edge_consumers(graph).items():
-        if len(cs) > 1:
-            raise NotImplementedError(
-                f"edge {edge!r} feeds {len(cs)} nodes: the fan-out gradient "
-                f"accumulate is not ported yet (ROADMAP A5)")
+    consumers = edge_consumers(graph)
+    producers = {n.out_edge: n for n in graph.nodes}
+
+    def grad_target(node: GraphNode, edge: str) -> str:
+        """Where this node's dX contribution to ``edge`` lands."""
+        if len(consumers.get(edge, ())) <= 1:
+            return _grad(edge)
+        return f"{_grad(edge)}@{node.name}"
+
+    def edge_size(edge: str) -> int:
+        if edge == graph.input_edge:
+            return B * math.prod(graph.input_shape)
+        return B * math.prod(producers[edge].out_shape)
+
+    def scratch_rename(prog, rename: dict[str, str], prefix: str):
+        for rn in prog.regions:
+            if rn not in rename:
+                rename[rn] = f"{prefix}.{rn}"
+        return rename
 
     kinds_base: dict[str, str] = {
         graph.input_edge: "input",
@@ -519,6 +644,38 @@ def lower_training_step(
                  kinds_base.get(node.out_edge, "scratch"))
             )
             steps.append(step)
+        elif isinstance(s, AttentionSpec):
+            prog = lower(s, "fwd", design=design)
+            rename = scratch_rename(
+                prog, {"x": node.in_edge, "y": node.out_edge},
+                f"{node.name}.fwd",
+            )
+            static.add(f"{node.name}.fwd.mask")
+            static.add(f"{node.name}.fwd.consts")
+            relocated_step(f"{node.name}:fwd", s, "fwd", rename,
+                           batched=True, prog=prog)
+        elif isinstance(s, LayerNormSpec):
+            prog = lower(s, "fwd", design=design)
+            rename = scratch_rename(
+                prog,
+                {"x": node.in_edge, "w": node.param, "y": node.out_edge},
+                f"{node.name}.fwd",
+            )
+            relocated_step(f"{node.name}:fwd", s, "fwd", rename,
+                           batched=False, prog=prog)
+        elif isinstance(s, ResidualAddSpec):
+            relocated_step(
+                f"{node.name}:fwd", s, "fwd",
+                {"x": node.in_edge, "x2": node.aux_edges[0],
+                 "y": node.out_edge},
+                batched=False,
+            )
+        elif isinstance(s, (EmbeddingSpec, PosEmbedSpec)):
+            relocated_step(
+                f"{node.name}:fwd", s, "fwd",
+                {"x": node.in_edge, "w": node.param, "y": node.out_edge},
+                batched=False,
+            )
         else:
             raise TypeError(f"no graph lowering for {type(s).__name__}")
 
@@ -534,7 +691,8 @@ def lower_training_step(
     for node in reversed(graph.nodes):
         s = node.spec
         g_out = _grad(node.out_edge)
-        g_in = _grad(node.in_edge)
+        g_in = grad_target(node, node.in_edge)
+        is_first = node.in_edge == graph.input_edge
 
         # dW + the update
         if node.param is not None:
@@ -581,6 +739,28 @@ def lower_training_step(
                     {"dy": g_out, "one": f"{node.name}.one", "db": _grad(p)},
                     batched=False,
                 )
+            elif isinstance(s, LayerNormSpec):
+                prog = lower(s, "dw", design=design)
+                rename = scratch_rename(
+                    prog,
+                    {"x": node.in_edge, "dy": g_out, "dw": _grad(p)},
+                    f"{node.name}.dw",
+                )
+                relocated_step(f"{node.name}:dw", s, "dw", rename,
+                               batched=False, prog=prog)
+            elif isinstance(s, EmbeddingSpec):
+                relocated_step(
+                    f"{node.name}:dw", s, "dw",
+                    {"x": node.in_edge, "dy": g_out, "dw": _grad(p)},
+                    batched=False,
+                )
+            elif isinstance(s, PosEmbedSpec):
+                relocated_step(
+                    f"{node.name}:dw", s, "dw",
+                    {"dy": g_out, "one": f"{node.name}.dw.one",
+                     "dw": _grad(p)},
+                    batched=False,
+                )
 
             # the SGD(+momentum) update, right after dW so the gradient's
             # liveness ends here unless the caller keeps it as an output
@@ -612,13 +792,12 @@ def lower_training_step(
             steps.append(upd)
 
         # dX (skipped for the input-most node: nothing consumes it)
-        if node.in_edge == graph.input_edge:
+        if is_first:
             continue
         if isinstance(s, Conv2dSpec):
             rename = {"dy": g_out, "w": node.param, "dx": g_in}
             dx_prog = lower(s, "dx", design=design)
-            for rn in dx_prog.regions:
-                rename.setdefault(rn, f"{node.name}.dx.{rn}")
+            scratch_rename(dx_prog, rename, f"{node.name}.dx")
             relocated_step(f"{node.name}:dx", s, "dx", rename, batched=True,
                            prog=dx_prog)
         elif isinstance(s, MatmulSpec):
@@ -642,19 +821,112 @@ def lower_training_step(
                  "mask": f"{node.name}.mask", "dx": g_in},
                 batched=True,
             )
-        elif isinstance(s, (FlattenSpec, BiasSpec)):
-            # pure views backward: d_in aliases d_out, in the input's shape
+        elif isinstance(s, AttentionSpec):
+            dx_prog = lower(s, "dx", design=design)
+            rename = {"x": node.in_edge, "dy": g_out, "dx": g_in}
+            scratch_rename(dx_prog, rename, f"{node.name}.dx")
+            static.add(f"{node.name}.dx.mask")
+            static.add(f"{node.name}.dx.consts")
+            relocated_step(f"{node.name}:dx", s, "dx", rename, batched=True,
+                           prog=dx_prog)
+        elif isinstance(s, LayerNormSpec):
+            dx_prog = lower(s, "dx", design=design)
+            rename = {"x": node.in_edge, "w": node.param, "dy": g_out,
+                      "dx": g_in}
+            scratch_rename(dx_prog, rename, f"{node.name}.dx")
+            relocated_step(f"{node.name}:dx", s, "dx", rename, batched=False,
+                           prog=dx_prog)
+        elif isinstance(s, ResidualAddSpec):
+            # one step, two identity-copy relocations: the upstream grad
+            # flows unchanged into BOTH the main and the skip branch
+            t_main = g_in
+            t_aux = grad_target(node, node.aux_edges[0])
+            dx_prog = lower(s, "dx", design=design)
             step = _Step(key=f"{node.name}:dx")
-            step.touch(g_out)
-            in_shape = ((B,) + node.in_shape) if B > 1 else node.in_shape
-            if isinstance(s, BiasSpec):
-                in_shape = (s.rows, s.c)
-            step.aliases.append(
-                (g_in, g_out, in_shape, kinds_base.get(g_in, "scratch"))
-            )
+            step.touch(g_out, dx_prog.regions["dy"].shape,
+                       kinds_base.get(g_out, "scratch"))
+            for t in (t_main, t_aux):
+                step.touch(t, dx_prog.regions["dx"].shape,
+                           kinds_base.get(t, "scratch"))
+
+            def emit_res_dx(regions, _prog=dx_prog, _g=g_out,
+                            _targets=(t_main, t_aux),
+                            _key=f"{node.name}:dx"):
+                blocks: list[CommandBlock] = []
+                for dst in _targets:
+                    rename = {"dy": _g, "dx": dst}
+                    blocks.extend(_relocate_blocks(
+                        _prog, rename, regions, set(rename.values()), 1,
+                        _key,
+                    ))
+                return blocks
+
+            step.emit = emit_res_dx
             steps.append(step)
+        elif isinstance(s, PosEmbedSpec):
+            relocated_step(
+                f"{node.name}:dx", s, "dx",
+                {"dy": g_out, "dx": g_in},
+                batched=False,
+            )
+        elif isinstance(s, (FlattenSpec, BiasSpec)):
+            if len(consumers[node.in_edge]) > 1:
+                # the alias trick can't feed a partial sum — identity-copy
+                # the grad into this consumer's private partial instead
+                relocated_step(
+                    f"{node.name}:dx",
+                    ResidualAddSpec((edge_size(node.in_edge),)), "dx",
+                    {"dy": g_out, "dx": g_in},
+                    batched=False,
+                )
+            else:
+                # pure views backward: d_in aliases d_out, input's shape
+                step = _Step(key=f"{node.name}:dx")
+                step.touch(g_out)
+                in_shape = ((B,) + node.in_shape) if B > 1 else node.in_shape
+                if isinstance(s, BiasSpec):
+                    in_shape = (s.rows, s.c)
+                step.aliases.append(
+                    (g_in, g_out, in_shape, kinds_base.get(g_in, "scratch"))
+                )
+                steps.append(step)
         else:
             raise TypeError(f"no dX graph lowering for {type(s).__name__}")
+
+        # fan-out edges: once the forward-FIRST consumer (processed last
+        # here) has contributed, sum the per-consumer partials into d_<e>
+        for e in (node.in_edge, *node.aux_edges):
+            cs = consumers[e]
+            if len(cs) <= 1 or cs[0] is not node:
+                continue
+            size = edge_size(e)
+            parts = [f"{_grad(e)}@{c.name}" for c in cs]
+            acc = _Step(key=f"{e}:acc")
+            for pn in parts:
+                acc.touch(pn)
+            chain: list[tuple[str, str, str]] = []
+            cur = parts[0]
+            for i, nxt in enumerate(parts[1:]):
+                dst = (_grad(e) if i == len(parts) - 2
+                       else f"{_grad(e)}.acc{i}")
+                acc.touch(dst, (size,), kinds_base.get(dst, "scratch"))
+                chain.append((cur, nxt, dst))
+                cur = dst
+            add_prog = lower(ResidualAddSpec((size,)), "fwd", design=design)
+
+            def emit_acc(regions, _chain=tuple(chain), _prog=add_prog,
+                         _key=f"{e}:acc"):
+                blocks: list[CommandBlock] = []
+                for a, b2, dst in _chain:
+                    rename = {"x": a, "x2": b2, "y": dst}
+                    blocks.extend(_relocate_blocks(
+                        _prog, rename, regions, set(rename.values()), 1,
+                        _key,
+                    ))
+                return blocks
+
+            acc.emit = emit_acc
+            steps.append(acc)
 
     return _assemble(graph, steps, design, n_clusters, keep_grads)
 
@@ -842,6 +1114,35 @@ def frequency_band_batches(
     return batch_fn
 
 
+def one_hot_rows(ids, n_classes: int) -> np.ndarray:
+    """float32 one-hot rows ``(len(ids), n_classes)``: the rows of
+    ``np.eye(n_classes)[ids]`` without the ``n_classes``-square identity
+    (at the Qwen vocabulary, 151,936, that identity is 92 GB)."""
+    ids = np.asarray(ids).reshape(-1)
+    out = np.zeros((ids.size, n_classes), np.float32)
+    out[np.arange(ids.size), ids] = 1.0
+    return out
+
+
+def lm_token_batches(
+    rng: np.random.RandomState, batch: int, seq: int, vocab: int
+) -> Callable[[int], tuple[np.ndarray, np.ndarray]]:
+    """Synthetic next-token task for the LM train-step drivers
+    (``repro/lower/graph.py::lm_token_batches``, the same draws from
+    ``rng``): every position's target is a fixed affine remap of its input
+    token, so the mapping is learnable by embedding + head alone and a few
+    SGD steps visibly reduce the CE loss. Returns ``batch_fn(step) ->
+    (one-hot tokens (B*S, V) float32, target ids (B*S,) int)`` — the
+    token-row layout :meth:`NetworkGraph.from_model_config` graphs consume."""
+
+    def batch_fn(_step):
+        tok = rng.randint(0, vocab, batch * seq)
+        nxt = (tok * 3 + 1) % vocab
+        return one_hot_rows(tok, vocab), nxt
+
+    return batch_fn
+
+
 def softmax_xent_loss(logits: np.ndarray, labels: np.ndarray) -> float:
     """Host-side scalar loss over the step's logits output."""
     z = np.asarray(logits, np.float64)
@@ -866,7 +1167,9 @@ def train_graph(
 ) -> dict[str, Any]:
     """Train ``graph`` for ``steps`` steps.
 
-    ``batch_fn(i)`` returns (images (B, H, W, C) float32, labels (B,) int).
+    ``batch_fn(i)`` returns (inputs, labels): images (B, H, W, C) float32
+    and labels (B,) int for a CNN, one-hot token rows (B*S, V) and target
+    ids (B*S,) for an LM graph; the labels become one-hot rows.
     ``backend`` is ``"torch"`` (the torch executor: region kernels and
     per-node steps, fused unless ``fuse=False``) or ``"reference"`` (the
     compiled ``program``, lowered here when not given, command by command on
@@ -904,7 +1207,6 @@ def train_graph(
     if params is None:
         params = graph.init_params()
     params = params_from_jax(params, graph, dev)
-    eye = np.eye(graph.loss.classes, dtype=np.float32)
     losses: list[float] = []
     walls: list[float] = []
     first = None
@@ -918,7 +1220,8 @@ def train_graph(
                 x, labels = batch_fn(i)
                 inputs = {
                     graph.input_edge: torch.as_tensor(np.asarray(x, np.float32), device=dev),
-                    graph.label_edge: torch.as_tensor(eye[np.asarray(labels)], device=dev),
+                    graph.label_edge: torch.as_tensor(
+                        one_hot_rows(labels, graph.loss.classes), device=dev),
                     **params,
                 }
                 with reg.scope(f"step{i}") if reg is not None else contextlib.nullcontext():

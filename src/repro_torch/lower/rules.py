@@ -1,5 +1,5 @@
 """Lowering rules: layer specs -> :class:`~repro_torch.lower.ir.NtxProgram`
-(``repro/lower/rules.py``, the CNN rule set).
+(``repro/lower/rules.py``).
 
 One rule per (layer type, pass). Every rule goes through the same loop-nest
 builder: order the iteration dims innermost-first as
@@ -20,10 +20,13 @@ s*s phase blocks, each a dense correlation of a zero-padded ``dy`` with the
 subset are AGU striding (negative strides), and the zero padding is staged
 in-band with ``memset`` / ``copy`` commands.
 
+The LM rules (attention, layernorm, residual add, embedding, positional
+embedding) lower the decoder-only transformer's nodes: attention's row
+softmax is the same in-band max / exp / sum / recip chain as the loss
+gradient's, and its dX rematerialises the softmax from qkv.
+
 The spec dataclasses key the plan cache and the region compilations, so
-they stay frozen and hashable. The LM specs (attention, layernorm, residual
-add, embedding, positional embedding) and their lowerings are not ported
-yet (ROADMAP A5): :func:`lower` raises ``TypeError`` for them.
+they stay frozen and hashable.
 """
 
 from __future__ import annotations
@@ -154,6 +157,89 @@ class SgdUpdateSpec:
     momentum: float = 0.0
 
 
+@dataclass(frozen=True)
+class AttentionSpec:
+    """Single-image causal multi-head self-attention core (param-free).
+
+    The input is the fused qkv activation (seq, 3*n_heads*head_dim), laid
+    out ``[q | k | v]`` per row; the output is the context (seq,
+    n_heads*head_dim). Per head: ``scores = (q @ k^T) * head_dim**-0.5 +
+    causal_mask``, ``p = softmax(scores)``, ``ctx = p @ v`` — the score and
+    context matmuls fold the head index as a fourth loop dim, and the row
+    softmax is the same in-band max/exp/sum/recip machinery the loss
+    gradient uses. The dX pass rematerializes ``p`` from qkv (scores are
+    cheaper to recompute than to keep live across the whole backward).
+    """
+
+    seq: int
+    n_heads: int
+    head_dim: int
+
+    @property
+    def d(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def scale(self) -> float:
+        return 1.0 / math.sqrt(self.head_dim)
+
+
+@dataclass(frozen=True)
+class LayerNormSpec:
+    """Row-wise layernorm over (rows, d) with a packed (2, d) parameter:
+    row 0 is gamma (init 1), row 1 is beta (init 0). ``rows`` folds batch
+    and sequence. Mean/variance are MAC reductions against a staged 1/d
+    constant; rstd is a single ``vrsqrt`` stream; dX recomputes the stats
+    (cheaper than keeping xhat/rstd live through the backward)."""
+
+    rows: int
+    d: int
+    eps: float = 1e-5
+
+
+@dataclass(frozen=True)
+class ResidualAddSpec:
+    """y = x0 + x1 elementwise over ``shape`` — the DAG join node.
+
+    dX is an identity copy toward *each* branch; the graph compiler emits
+    one copy per incoming edge and sums gradient contributions at joins.
+    """
+
+    shape: tuple[int, ...]
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+@dataclass(frozen=True)
+class EmbeddingSpec:
+    """Token embedding y[rows, d] = onehot[rows, vocab] @ W[vocab, d].
+
+    The host stages tokens as one-hot rows (exactly like the loss labels),
+    so fwd and dW are plain matmul nests over the embedding table. dX never
+    lowers: the input is the token stream, which carries no gradient.
+    """
+
+    rows: int
+    vocab: int
+    d: int
+
+
+@dataclass(frozen=True)
+class PosEmbedSpec:
+    """Learned positional embedding y[b, s, :] = x[b, s, :] + P[s, :].
+
+    Whole-batch node (``batch`` is baked into the spec): fwd broadcasts P
+    over the batch dim with a zero AGU stride, dW reduces dy over batch via
+    a MAC against a staged 1.0, dX is an identity copy.
+    """
+
+    batch: int
+    seq: int
+    d: int
+
+
 # ---------------------------------------------------------------------------
 # The shared loop-nest splitter
 # ---------------------------------------------------------------------------
@@ -270,6 +356,28 @@ def _memset_at(dst: TensorRegion, off: int, value: float) -> CommandBlock:
         writes=(dst.name,),
         dma_bytes_out=float(ELEM_BYTES),
     )
+
+
+def _memset_range(
+    dst: TensorRegion, off: int, count: int, value: float, *, tag: str = ""
+) -> CommandBlock:
+    """Stage ``count`` contiguous elements of a constant in-band."""
+    return CommandBlock(
+        template=NtxCommand(
+            loops=(count, 1, 1, 1, 1),
+            opcode="memset",
+            agu_rd0=Agu(dst.base + off, (0,) * MAX_LOOPS),
+            agu_wr=Agu(dst.base + off, _pad5((1,), 0)),
+            init_level=0,
+            store_level=0,
+            init_value=value,
+        ),
+        tag=tag or f"memset:{dst.name}[{off}:{off + count}]",
+        writes=(dst.name,),
+        dma_bytes_out=float(count * ELEM_BYTES),
+    )
+
+
 
 
 def _copy_block(
@@ -1060,6 +1168,693 @@ def _lower_sgd_update(spec: SgdUpdateSpec, design: DesignPoint) -> NtxProgram:
     )
 
 
+# ---------------------------------------------------------------------------
+# Row softmax (shared by attention fwd/dx — same machinery as the loss grad)
+# ---------------------------------------------------------------------------
+
+
+def softmax_rows_blocks(
+    src: TensorRegion,
+    p: TensorRegion,
+    scratch: dict[str, TensorRegion],
+    consts: TensorRegion,
+    design: DesignPoint,
+    *,
+    rows: int,
+    cols: int,
+    tag: str,
+    neg1_off: int = 0,
+    one_off: int = 1,
+) -> list[CommandBlock]:
+    """p = softmax(src) over ``rows`` independent rows of ``cols`` elements.
+
+    The numerically-stable max/exp/sum/recip chain at explicit regions.
+    ``scratch`` holds ``m``/``negm``/``s``/``r`` shaped (rows,) and
+    ``zc``/``e`` shaped (rows, cols); ``consts`` must already stage -1.0 at
+    ``neg1_off`` and 1.0 at ``one_off`` (the caller owns the staging so one
+    consts region can serve several chains).
+    """
+    m, negm = scratch["m"], scratch["negm"]
+    zc, e = scratch["zc"], scratch["e"]
+    s, r = scratch["s"], scratch["r"]
+    return [
+        # m[row] = max_c src[row, c]
+        _nest_block(
+            (cols, rows), 1,
+            (src.base, (1, cols)), None, (m.base, (0, 1)),
+            design, opcode="vmax", tag=f"{tag}:rowmax",
+            reads=(src,), writes=(m,),
+        ),
+        _nest_block(
+            (rows,), 0,
+            (m.base, (1,)), (consts.base + neg1_off, (0,)), (negm.base, (1,)),
+            design, opcode="vmul", tag=f"{tag}:negmax",
+            reads=(m, consts), writes=(negm,),
+        ),
+        _nest_block(
+            (cols, rows), 0,
+            (src.base, (1, cols)), (negm.base, (0, 1)), (zc.base, (1, cols)),
+            design, opcode="vadd", tag=f"{tag}:shift",
+            reads=(src, negm), writes=(zc,),
+        ),
+        _nest_block(
+            (rows * cols,), 0,
+            (zc.base, (1,)), None, (e.base, (1,)),
+            design, opcode="vexp", tag=f"{tag}:exp",
+            reads=(zc,), writes=(e,),
+        ),
+        # s[row] = sum_c e[row, c] — MAC against the staged 1.0
+        _nest_block(
+            (cols, rows), 1,
+            (e.base, (1, cols)), (consts.base + one_off, (0, 0)), (s.base, (0, 1)),
+            design, opcode="mac", tag=f"{tag}:rowsum",
+            reads=(e, consts), writes=(s,),
+        ),
+        _nest_block(
+            (rows,), 0,
+            (s.base, (1,)), None, (r.base, (1,)),
+            design, opcode="vrecip", tag=f"{tag}:recip",
+            reads=(s,), writes=(r,),
+        ),
+        _nest_block(
+            (cols, rows), 0,
+            (e.base, (1, cols)), (r.base, (0, 1)), (p.base, (1, cols)),
+            design, opcode="vmul", tag=f"{tag}:softmax",
+            reads=(e, r), writes=(p,),
+        ),
+    ]
+
+
+# ---------------------------------------------------------------------------
+# Attention rules (fwd / dx)
+# ---------------------------------------------------------------------------
+
+#: additive mask for future positions; exp(x - rowmax) underflows to exactly
+#: 0.0 in fp32 for masked entries, so masked softmax weights (and therefore
+#: their backward contributions) are exact zeros — matching the autodiff oracle.
+_MASK_NEG = -1.0e9
+
+_SOFTMAX_KEYS = ("m", "negm", "zc", "e", "s", "r")
+
+
+def causal_mask_blocks(
+    mask: TensorRegion, seq: int, *, tag: str = "attn:mask"
+) -> list[CommandBlock]:
+    """Stage the (seq, seq) additive causal mask in-band: zero the plane,
+    then one ranged memset of ``_MASK_NEG`` per row's future positions."""
+    blocks = [_memset_block(mask, 0.0)]
+    for i in range(seq - 1):
+        blocks.append(
+            _memset_range(
+                mask, i * seq + i + 1, seq - 1 - i, _MASK_NEG, tag=f"{tag}[{i}]"
+            )
+        )
+    return blocks
+
+
+def attention_scratch_shapes(
+    spec: AttentionSpec, pass_: str = "fwd"
+) -> dict[str, tuple[int, ...]]:
+    """The scratch regions the attention blocks need (head-major (H, S, S)
+    score planes; the softmax row scratch folds heads into rows)."""
+    S, H = spec.seq, spec.n_heads
+    hs, plane = (H * S,), (H, S, S)
+    shapes: dict[str, tuple[int, ...]] = {
+        "consts": (3,), "mask": (S, S),
+        "scores": plane, "ss": plane, "sm": plane, "p": plane,
+        "sm_m": hs, "sm_negm": hs, "sm_zc": plane, "sm_e": plane,
+        "sm_s": hs, "sm_r": hs,
+    }
+    if pass_ == "dx":
+        shapes.update({
+            "dp": plane, "tp": plane, "rs": hs, "negr": hs,
+            "dsh": plane, "dsp": plane, "ds": plane,
+        })
+    return shapes
+
+
+def _attention_softmax_chain(
+    spec: AttentionSpec,
+    qkv: TensorRegion,
+    scratch: dict[str, TensorRegion],
+    design: DesignPoint,
+    *,
+    tag: str,
+) -> list[CommandBlock]:
+    """scores -> scaled -> masked -> row-softmax, producing scratch["p"].
+
+    Shared verbatim by fwd and dx (the backward rematerializes p rather
+    than keeping the (H, S, S) planes live across the whole step).
+    """
+    S, H, Dh = spec.seq, spec.n_heads, spec.head_dim
+    D, W3 = spec.d, 3 * spec.d
+    consts, mask = scratch["consts"], scratch["mask"]
+    scores, ss, sm, p = scratch["scores"], scratch["ss"], scratch["sm"], scratch["p"]
+    return [
+        _memset_at(consts, 0, -1.0),
+        _memset_at(consts, 1, 1.0),
+        _memset_at(consts, 2, spec.scale),
+        *causal_mask_blocks(mask, S, tag=f"{tag}:mask"),
+        # scores[h,i,j] = sum_d q[i, h*Dh+d] * k[j, D + h*Dh+d]; the head
+        # index rides as a fourth loop dim of the same command.
+        _nest_block(
+            (Dh, S, S, H), 1,
+            (qkv.base, (1, 0, W3, Dh)),
+            (qkv.base + D, (1, W3, 0, Dh)),
+            (scores.base, (0, 1, S, S * S)),
+            design, tag=f"{tag}:scores", reads=(qkv,), writes=(scores,),
+        ),
+        _nest_block(
+            (H * S * S,), 0,
+            (scores.base, (1,)), (consts.base + 2, (0,)), (ss.base, (1,)),
+            design, opcode="vmul", tag=f"{tag}:scale",
+            reads=(scores, consts), writes=(ss,),
+        ),
+        # the (S, S) mask broadcasts over heads with a zero stride
+        _nest_block(
+            (S, S, H), 0,
+            (ss.base, (1, S, S * S)), (mask.base, (1, S, 0)),
+            (sm.base, (1, S, S * S)),
+            design, opcode="vadd", tag=f"{tag}:maskadd",
+            reads=(ss, mask), writes=(sm,),
+        ),
+        *softmax_rows_blocks(
+            sm, p, {k: scratch[f"sm_{k}"] for k in _SOFTMAX_KEYS}, consts,
+            design, rows=H * S, cols=S, tag=f"{tag}:softmax",
+        ),
+    ]
+
+
+def attention_fwd_blocks(
+    spec: AttentionSpec,
+    qkv: TensorRegion,
+    ctx: TensorRegion,
+    scratch: dict[str, TensorRegion],
+    design: DesignPoint,
+    *,
+    tag: str = "attn:fwd",
+) -> list[CommandBlock]:
+    S, H, Dh = spec.seq, spec.n_heads, spec.head_dim
+    D, W3 = spec.d, 3 * spec.d
+    p = scratch["p"]
+    return [
+        *_attention_softmax_chain(spec, qkv, scratch, design, tag=tag),
+        # ctx[i, h*Dh+dd] = sum_j p[h,i,j] * v[j, 2D + h*Dh+dd]
+        _nest_block(
+            (S, Dh, S, H), 1,
+            (p.base, (1, 0, S, S * S)),
+            (qkv.base + 2 * D, (W3, 1, 0, Dh)),
+            (ctx.base, (0, 1, D, Dh)),
+            design, tag=f"{tag}:ctx", reads=(p, qkv), writes=(ctx,),
+        ),
+    ]
+
+
+def attention_dx_blocks(
+    spec: AttentionSpec,
+    qkv: TensorRegion,
+    dctx: TensorRegion,
+    dqkv: TensorRegion,
+    scratch: dict[str, TensorRegion],
+    design: DesignPoint,
+    *,
+    tag: str = "attn:dx",
+) -> list[CommandBlock]:
+    """d_qkv from d_ctx: dv = p^T dctx; softmax backward
+    ds = scale * p * (dp - rowsum(dp * p)); dq = ds k; dk = ds^T q.
+
+    Masked positions contribute exactly 0: p is an exact 0 there (see
+    ``_MASK_NEG``) and every ds term carries a factor of p.
+    """
+    S, H, Dh = spec.seq, spec.n_heads, spec.head_dim
+    D, W3 = spec.d, 3 * spec.d
+    consts, p = scratch["consts"], scratch["p"]
+    dp, tp, rs, negr = scratch["dp"], scratch["tp"], scratch["rs"], scratch["negr"]
+    dsh, dsp, ds = scratch["dsh"], scratch["dsp"], scratch["ds"]
+    return [
+        *_attention_softmax_chain(spec, qkv, scratch, design, tag=tag),
+        # dv[j,dd] = sum_i p[h,i,j] * dctx[i, h*Dh+dd]
+        _nest_block(
+            (S, Dh, S, H), 1,
+            (p.base, (S, 0, 1, S * S)),
+            (dctx.base, (D, 1, 0, Dh)),
+            (dqkv.base + 2 * D, (0, 1, W3, Dh)),
+            design, tag=f"{tag}:dv", reads=(p, dctx), writes=(dqkv,),
+        ),
+        # dp[h,i,j] = sum_dd dctx[i, h*Dh+dd] * v[j, 2D + h*Dh+dd]
+        _nest_block(
+            (Dh, S, S, H), 1,
+            (dctx.base, (1, 0, D, Dh)),
+            (qkv.base + 2 * D, (1, W3, 0, Dh)),
+            (dp.base, (0, 1, S, S * S)),
+            design, tag=f"{tag}:dp", reads=(dctx, qkv), writes=(dp,),
+        ),
+        _nest_block(
+            (H * S * S,), 0,
+            (dp.base, (1,)), (p.base, (1,)), (tp.base, (1,)),
+            design, opcode="vmul", tag=f"{tag}:tp",
+            reads=(dp, p), writes=(tp,),
+        ),
+        # rs[row] = sum_j (dp * p)[row, j]
+        _nest_block(
+            (S, H * S), 1,
+            (tp.base, (1, S)), (consts.base + 1, (0, 0)), (rs.base, (0, 1)),
+            design, opcode="mac", tag=f"{tag}:rowsum",
+            reads=(tp, consts), writes=(rs,),
+        ),
+        _nest_block(
+            (H * S,), 0,
+            (rs.base, (1,)), (consts.base + 0, (0,)), (negr.base, (1,)),
+            design, opcode="vmul", tag=f"{tag}:negrs",
+            reads=(rs, consts), writes=(negr,),
+        ),
+        _nest_block(
+            (S, H * S), 0,
+            (dp.base, (1, S)), (negr.base, (0, 1)), (dsh.base, (1, S)),
+            design, opcode="vadd", tag=f"{tag}:dshift",
+            reads=(dp, negr), writes=(dsh,),
+        ),
+        _nest_block(
+            (H * S * S,), 0,
+            (dsh.base, (1,)), (p.base, (1,)), (dsp.base, (1,)),
+            design, opcode="vmul", tag=f"{tag}:dsp",
+            reads=(dsh, p), writes=(dsp,),
+        ),
+        _nest_block(
+            (H * S * S,), 0,
+            (dsp.base, (1,)), (consts.base + 2, (0,)), (ds.base, (1,)),
+            design, opcode="vmul", tag=f"{tag}:dscale",
+            reads=(dsp, consts), writes=(ds,),
+        ),
+        # dq[i,dd] = sum_j ds[h,i,j] * k[j, D + h*Dh+dd]
+        _nest_block(
+            (S, Dh, S, H), 1,
+            (ds.base, (1, 0, S, S * S)),
+            (qkv.base + D, (W3, 1, 0, Dh)),
+            (dqkv.base, (0, 1, W3, Dh)),
+            design, tag=f"{tag}:dq", reads=(ds, qkv), writes=(dqkv,),
+        ),
+        # dk[j,dd] = sum_i ds[h,i,j] * q[i, h*Dh+dd]
+        _nest_block(
+            (S, Dh, S, H), 1,
+            (ds.base, (S, 0, 1, S * S)),
+            (qkv.base, (W3, 1, 0, Dh)),
+            (dqkv.base + D, (0, 1, W3, Dh)),
+            design, tag=f"{tag}:dk", reads=(ds, qkv), writes=(dqkv,),
+        ),
+    ]
+
+
+def _lower_attention(spec: AttentionSpec, pass_: str, design: DesignPoint) -> NtxProgram:
+    S, W3, D = spec.seq, 3 * spec.d, spec.d
+    alloc = RegionAllocator()
+    rx = alloc.alloc("x", (S, W3), "input")
+    if pass_ == "fwd":
+        ry = alloc.alloc("y", (S, D), "output")
+    else:
+        rdy = alloc.alloc("dy", (S, D), "input")
+        rdx = alloc.alloc("dx", (S, W3), "output")
+    scratch = {
+        name: alloc.alloc(name, shape, "scratch")
+        for name, shape in attention_scratch_shapes(spec, pass_).items()
+    }
+    if pass_ == "fwd":
+        blocks = attention_fwd_blocks(spec, rx, ry, scratch, design)
+    else:
+        blocks = attention_dx_blocks(spec, rx, rdy, rdx, scratch, design)
+    return NtxProgram(
+        name=f"attn{spec.n_heads}h{spec.head_dim}x{S}:{pass_}",
+        blocks=blocks,
+        regions=alloc.regions,
+        design=design,
+        meta={"spec": spec, "pass": pass_},
+    )
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm rules (fwd / dw / dx)
+# ---------------------------------------------------------------------------
+
+
+def layernorm_scratch_shapes(
+    spec: LayerNormSpec, pass_: str = "fwd"
+) -> dict[str, tuple[int, ...]]:
+    rows, d = spec.rows, spec.d
+    shapes: dict[str, tuple[int, ...]] = {
+        "consts": (4,),
+        "mean": (rows,), "negmean": (rows,), "xc": (rows, d),
+        "sq": (rows, d), "var": (rows,), "vareps": (rows,),
+        "rstd": (rows,), "xhat": (rows, d),
+    }
+    if pass_ == "fwd":
+        shapes["yg"] = (rows, d)
+    elif pass_ == "dw":
+        shapes["dyx"] = (rows, d)
+    else:
+        shapes.update({
+            "dyg": (rows, d), "m1": (rows,), "negm1": (rows,),
+            "t2": (rows, d), "m2": (rows,), "negm2": (rows,),
+            "a1": (rows, d), "b1": (rows, d), "c1": (rows, d),
+        })
+    return shapes
+
+
+def layernorm_stat_blocks(
+    spec: LayerNormSpec,
+    x: TensorRegion,
+    scratch: dict[str, TensorRegion],
+    design: DesignPoint,
+    *,
+    tag: str,
+) -> list[CommandBlock]:
+    """mean/var/rstd/xhat over the rows — shared by every layernorm pass
+    (dW and dX recompute the statistics instead of keeping them live)."""
+    rows, d = spec.rows, spec.d
+    c = scratch["consts"]
+    mean, negmean, xc = scratch["mean"], scratch["negmean"], scratch["xc"]
+    sq, var, vareps = scratch["sq"], scratch["var"], scratch["vareps"]
+    rstd, xhat = scratch["rstd"], scratch["xhat"]
+    return [
+        _memset_at(c, 0, 1.0 / d),
+        _memset_at(c, 1, -1.0),
+        _memset_at(c, 2, spec.eps),
+        # mean[r] = sum_col x[r, col] * (1/d) — MAC against the staged 1/d
+        _nest_block(
+            (d, rows), 1,
+            (x.base, (1, d)), (c.base + 0, (0, 0)), (mean.base, (0, 1)),
+            design, opcode="mac", tag=f"{tag}:mean",
+            reads=(x, c), writes=(mean,),
+        ),
+        _nest_block(
+            (rows,), 0,
+            (mean.base, (1,)), (c.base + 1, (0,)), (negmean.base, (1,)),
+            design, opcode="vmul", tag=f"{tag}:negmean",
+            reads=(mean, c), writes=(negmean,),
+        ),
+        _nest_block(
+            (d, rows), 0,
+            (x.base, (1, d)), (negmean.base, (0, 1)), (xc.base, (1, d)),
+            design, opcode="vadd", tag=f"{tag}:center",
+            reads=(x, negmean), writes=(xc,),
+        ),
+        _nest_block(
+            (rows * d,), 0,
+            (xc.base, (1,)), (xc.base, (1,)), (sq.base, (1,)),
+            design, opcode="vmul", tag=f"{tag}:square",
+            reads=(xc,), writes=(sq,),
+        ),
+        _nest_block(
+            (d, rows), 1,
+            (sq.base, (1, d)), (c.base + 0, (0, 0)), (var.base, (0, 1)),
+            design, opcode="mac", tag=f"{tag}:var",
+            reads=(sq, c), writes=(var,),
+        ),
+        _nest_block(
+            (rows,), 0,
+            (var.base, (1,)), (c.base + 2, (0,)), (vareps.base, (1,)),
+            design, opcode="vadd", tag=f"{tag}:vareps",
+            reads=(var, c), writes=(vareps,),
+        ),
+        _nest_block(
+            (rows,), 0,
+            (vareps.base, (1,)), None, (rstd.base, (1,)),
+            design, opcode="vrsqrt", tag=f"{tag}:rstd",
+            reads=(vareps,), writes=(rstd,),
+        ),
+        _nest_block(
+            (d, rows), 0,
+            (xc.base, (1, d)), (rstd.base, (0, 1)), (xhat.base, (1, d)),
+            design, opcode="vmul", tag=f"{tag}:xhat",
+            reads=(xc, rstd), writes=(xhat,),
+        ),
+    ]
+
+
+def _lower_layernorm(spec: LayerNormSpec, pass_: str, design: DesignPoint) -> NtxProgram:
+    rows, d = spec.rows, spec.d
+    alloc = RegionAllocator()
+    rx = alloc.alloc("x", (rows, d), "input")
+    if pass_ == "fwd":
+        rw = alloc.alloc("w", (2, d), "param")
+        rout = alloc.alloc("y", (rows, d), "output")
+    elif pass_ == "dw":
+        rdy = alloc.alloc("dy", (rows, d), "input")
+        rout = alloc.alloc("dw", (2, d), "output")
+    else:
+        rw = alloc.alloc("w", (2, d), "param")
+        rdy = alloc.alloc("dy", (rows, d), "input")
+        rout = alloc.alloc("dx", (rows, d), "output")
+    scratch = {
+        name: alloc.alloc(name, shape, "scratch")
+        for name, shape in layernorm_scratch_shapes(spec, pass_).items()
+    }
+    c = scratch["consts"]
+    rstd, xhat = scratch["rstd"], scratch["xhat"]
+    blocks = layernorm_stat_blocks(spec, rx, scratch, design, tag=f"layernorm:{pass_}")
+    if pass_ == "fwd":
+        yg = scratch["yg"]
+        blocks += [
+            # y = xhat * gamma + beta (gamma = w row 0, beta = w row 1)
+            _nest_block(
+                (d, rows), 0,
+                (xhat.base, (1, d)), (rw.base, (1, 0)), (yg.base, (1, d)),
+                design, opcode="vmul", tag="layernorm:fwd:gamma",
+                reads=(xhat, rw), writes=(yg,),
+            ),
+            _nest_block(
+                (d, rows), 0,
+                (yg.base, (1, d)), (rw.base + d, (1, 0)), (rout.base, (1, d)),
+                design, opcode="vadd", tag="layernorm:fwd",
+                reads=(yg, rw), writes=(rout,),
+            ),
+        ]
+    elif pass_ == "dw":
+        dyx = scratch["dyx"]
+        blocks += [
+            _memset_at(c, 3, 1.0),
+            _nest_block(
+                (rows * d,), 0,
+                (rdy.base, (1,)), (xhat.base, (1,)), (dyx.base, (1,)),
+                design, opcode="vmul", tag="layernorm:dw:dyx",
+                reads=(rdy, xhat), writes=(dyx,),
+            ),
+            # dgamma[col] = sum_r dy[r,col] * xhat[r,col]  (dw row 0)
+            _nest_block(
+                (rows, d), 1,
+                (dyx.base, (d, 1)), (c.base + 3, (0, 0)), (rout.base, (0, 1)),
+                design, opcode="mac", tag="layernorm:dw:gamma",
+                reads=(dyx, c), writes=(rout,),
+            ),
+            # dbeta[col] = sum_r dy[r,col]  (dw row 1)
+            _nest_block(
+                (rows, d), 1,
+                (rdy.base, (d, 1)), (c.base + 3, (0, 0)), (rout.base + d, (0, 1)),
+                design, opcode="mac", tag="layernorm:dw:beta",
+                reads=(rdy, c), writes=(rout,),
+            ),
+        ]
+    else:
+        # dx = rstd * (dyg - mean(dyg) - xhat * mean(dyg * xhat)),
+        # dyg = dy * gamma, means over the feature dim
+        dyg, t2 = scratch["dyg"], scratch["t2"]
+        m1, negm1 = scratch["m1"], scratch["negm1"]
+        m2, negm2 = scratch["m2"], scratch["negm2"]
+        a1, b1, c1 = scratch["a1"], scratch["b1"], scratch["c1"]
+        blocks += [
+            _nest_block(
+                (d, rows), 0,
+                (rdy.base, (1, d)), (rw.base, (1, 0)), (dyg.base, (1, d)),
+                design, opcode="vmul", tag="layernorm:dx:dyg",
+                reads=(rdy, rw), writes=(dyg,),
+            ),
+            _nest_block(
+                (d, rows), 1,
+                (dyg.base, (1, d)), (c.base + 0, (0, 0)), (m1.base, (0, 1)),
+                design, opcode="mac", tag="layernorm:dx:m1",
+                reads=(dyg, c), writes=(m1,),
+            ),
+            _nest_block(
+                (rows,), 0,
+                (m1.base, (1,)), (c.base + 1, (0,)), (negm1.base, (1,)),
+                design, opcode="vmul", tag="layernorm:dx:negm1",
+                reads=(m1, c), writes=(negm1,),
+            ),
+            _nest_block(
+                (rows * d,), 0,
+                (dyg.base, (1,)), (xhat.base, (1,)), (t2.base, (1,)),
+                design, opcode="vmul", tag="layernorm:dx:t2",
+                reads=(dyg, xhat), writes=(t2,),
+            ),
+            _nest_block(
+                (d, rows), 1,
+                (t2.base, (1, d)), (c.base + 0, (0, 0)), (m2.base, (0, 1)),
+                design, opcode="mac", tag="layernorm:dx:m2",
+                reads=(t2, c), writes=(m2,),
+            ),
+            _nest_block(
+                (rows,), 0,
+                (m2.base, (1,)), (c.base + 1, (0,)), (negm2.base, (1,)),
+                design, opcode="vmul", tag="layernorm:dx:negm2",
+                reads=(m2, c), writes=(negm2,),
+            ),
+            _nest_block(
+                (d, rows), 0,
+                (dyg.base, (1, d)), (negm1.base, (0, 1)), (a1.base, (1, d)),
+                design, opcode="vadd", tag="layernorm:dx:a",
+                reads=(dyg, negm1), writes=(a1,),
+            ),
+            _nest_block(
+                (d, rows), 0,
+                (xhat.base, (1, d)), (negm2.base, (0, 1)), (b1.base, (1, d)),
+                design, opcode="vmul", tag="layernorm:dx:b",
+                reads=(xhat, negm2), writes=(b1,),
+            ),
+            _nest_block(
+                (rows * d,), 0,
+                (a1.base, (1,)), (b1.base, (1,)), (c1.base, (1,)),
+                design, opcode="vadd", tag="layernorm:dx:ab",
+                reads=(a1, b1), writes=(c1,),
+            ),
+            _nest_block(
+                (d, rows), 0,
+                (c1.base, (1, d)), (rstd.base, (0, 1)), (rout.base, (1, d)),
+                design, opcode="vmul", tag="layernorm:dx",
+                reads=(c1, rstd), writes=(rout,),
+            ),
+        ]
+    return NtxProgram(
+        name=f"layernorm{rows}x{d}:{pass_}",
+        blocks=blocks,
+        regions=alloc.regions,
+        design=design,
+        meta={"spec": spec, "pass": pass_},
+    )
+
+
+# ---------------------------------------------------------------------------
+# Residual / embedding / positional-embedding rules
+# ---------------------------------------------------------------------------
+
+
+def _lower_residual(spec: ResidualAddSpec, pass_: str, design: DesignPoint) -> NtxProgram:
+    n = spec.size
+    alloc = RegionAllocator()
+    if pass_ == "fwd":
+        rx0 = alloc.alloc("x", spec.shape, "input")
+        rx1 = alloc.alloc("x2", spec.shape, "input")
+        ry = alloc.alloc("y", spec.shape, "output")
+        blocks = [
+            _nest_block(
+                (n,), 0,
+                (rx0.base, (1,)), (rx1.base, (1,)), (ry.base, (1,)),
+                design, opcode="vadd", tag="residual:fwd",
+                reads=(rx0, rx1), writes=(ry,),
+            )
+        ]
+    else:
+        # the gradient passes through unchanged to each branch; the graph
+        # compiler emits one copy per incoming edge
+        rdy = alloc.alloc("dy", spec.shape, "input")
+        rdx = alloc.alloc("dx", spec.shape, "output")
+        blocks = [
+            _nest_block(
+                (n,), 0,
+                (rdy.base, (1,)), None, (rdx.base, (1,)),
+                design, opcode="copy", tag="residual:dx",
+                reads=(rdy,), writes=(rdx,),
+            )
+        ]
+    return NtxProgram(
+        name=f"residual{n}:{pass_}",
+        blocks=blocks,
+        regions=alloc.regions,
+        design=design,
+        meta={"spec": spec, "pass": pass_},
+    )
+
+
+def _lower_embedding(spec: EmbeddingSpec, pass_: str, design: DesignPoint) -> NtxProgram:
+    rows, V, d = spec.rows, spec.vocab, spec.d
+    alloc = RegionAllocator()
+    rx = alloc.alloc("x", (rows, V), "input")  # one-hot token rows
+    if pass_ == "fwd":
+        rw = alloc.alloc("w", (V, d), "param")
+        rout = alloc.alloc("y", (rows, d), "output")
+        sizes, n_red, rd0, rd1, wr = matmul_nest(
+            rows, d, V, "fwd", rx.base, rw.base, rout.base
+        )
+        reads = (rx, rw)
+    else:
+        rdy = alloc.alloc("dy", (rows, d), "input")
+        rout = alloc.alloc("dw", (V, d), "output")
+        sizes, n_red, rd0, rd1, wr = matmul_nest(
+            rows, d, V, "dw", rx.base, rdy.base, rout.base
+        )
+        reads = (rx, rdy)
+    block = _nest_block(
+        sizes, n_red, rd0, rd1, wr, design,
+        tag=f"embed:{pass_}", reads=reads, writes=(rout,),
+    )
+    return NtxProgram(
+        name=f"embed{V}x{d}:{pass_}",
+        blocks=[block],
+        regions=alloc.regions,
+        design=design,
+        meta={"spec": spec, "pass": pass_},
+    )
+
+
+def _lower_posembed(spec: PosEmbedSpec, pass_: str, design: DesignPoint) -> NtxProgram:
+    B, S, d = spec.batch, spec.seq, spec.d
+    alloc = RegionAllocator()
+    if pass_ == "fwd":
+        rx = alloc.alloc("x", (B, S, d), "input")
+        rw = alloc.alloc("w", (S, d), "param")
+        ry = alloc.alloc("y", (B, S, d), "output")
+        blocks = [
+            # P broadcasts over the batch dim with a zero stride
+            _nest_block(
+                (d, S, B), 0,
+                (rx.base, (1, d, S * d)), (rw.base, (1, d, 0)),
+                (ry.base, (1, d, S * d)),
+                design, opcode="vadd", tag="posembed:fwd",
+                reads=(rx, rw), writes=(ry,),
+            )
+        ]
+    elif pass_ == "dw":
+        rdy = alloc.alloc("dy", (B, S, d), "input")
+        rone = alloc.alloc("one", (1,), "scratch")
+        rdw = alloc.alloc("dw", (S, d), "output")
+        blocks = [
+            _memset_at(rone, 0, 1.0),
+            # dP[s, c] = sum_b dy[b, s, c] — MAC against the staged 1.0
+            _nest_block(
+                (B, d, S), 1,
+                (rdy.base, (S * d, 1, d)), (rone.base, (0, 0, 0)),
+                (rdw.base, (0, 1, d)),
+                design, opcode="mac", tag="posembed:dw",
+                reads=(rdy, rone), writes=(rdw,),
+            ),
+        ]
+    else:
+        rdy = alloc.alloc("dy", (B, S, d), "input")
+        rdx = alloc.alloc("dx", (B, S, d), "output")
+        blocks = [
+            _nest_block(
+                (B * S * d,), 0,
+                (rdy.base, (1,)), None, (rdx.base, (1,)),
+                design, opcode="copy", tag="posembed:dx",
+                reads=(rdy,), writes=(rdx,),
+            )
+        ]
+    return NtxProgram(
+        name=f"posembed{B}x{S}x{d}:{pass_}",
+        blocks=blocks,
+        regions=alloc.regions,
+        design=design,
+        meta={"spec": spec, "pass": pass_},
+    )
+
 
 # ---------------------------------------------------------------------------
 # The lowering registry + entry point
@@ -1106,20 +1901,11 @@ def register_unsupported(spec_type: type, make_error):
     return make_error
 
 
-#: the JAX package's LM spec types, whose lowerings are not ported yet
-LM_SPECS = ("AttentionSpec", "LayerNormSpec", "ResidualAddSpec", "EmbeddingSpec",
-            "PosEmbedSpec")
-
-
 def _registry_entry(spec) -> tuple[type, dict]:
     for klass in type(spec).__mro__:
         if klass in _LOWERINGS or klass in _UNSUPPORTED:
             return klass, _LOWERINGS.get(klass, {})
-    name = type(spec).__name__
-    if name in LM_SPECS:
-        raise TypeError(f"no lowering rule for {name}: the LM lowerings are not "
-                        f"ported yet (ROADMAP A5)")
-    raise TypeError(f"no lowering rule for {name}")
+    raise TypeError(f"no lowering rule for {type(spec).__name__}")
 
 
 def lower(spec, pass_: str = "fwd", *, design: DesignPoint = NTX_DESIGN) -> NtxProgram:
@@ -1129,10 +1915,10 @@ def lower(spec, pass_: str = "fwd", *, design: DesignPoint = NTX_DESIGN) -> NtxP
     :func:`supported_matrix` renders the live support matrix. Combinations
     outside it raise what their :func:`register_unsupported` entry declares:
     ``NotImplementedError`` when the pass is meaningful but genuinely
-    unsupported (overlapping-pool dX, flatten standalone), ``ValueError``
-    when the pass name itself is nonsensical for the spec (e.g. relu ``dw``
-    — no parameters exist). Unknown spec types, the LM ones among them
-    (ROADMAP A5), raise ``TypeError``.
+    unsupported (overlapping-pool dX, flatten standalone, embedding dX),
+    ``ValueError`` when the pass name itself is nonsensical for the spec
+    (e.g. relu ``dw`` — no parameters exist). Unknown spec types raise
+    ``TypeError``.
     """
     klass, table = _registry_entry(spec)
     fn = table.get(pass_)
@@ -1165,9 +1951,9 @@ def supported_matrix() -> dict[str, tuple[str, ...]]:
 def lower_layer(spec, *, design: DesignPoint = NTX_DESIGN) -> dict[str, NtxProgram]:
     """All registered training passes of one layer, keyed by pass name.
 
-    Parameterized layers (matmul/conv/bias) get fwd+dw+dx; relu and
-    (non-overlapping) pooling get fwd+dx — the pass set comes from the
-    registry.
+    Parameterized layers (matmul/conv/bias/layernorm) get fwd+dw+dx; relu,
+    (non-overlapping) pooling, attention and residual get fwd+dx; embedding
+    gets fwd+dw — the pass set comes from the registry.
     """
     klass, table = _registry_entry(spec)
     if not table:
@@ -1277,3 +2063,74 @@ register_unsupported(
     ),
 )
 
+
+# -- registrations for the transformer/LM rule set ---------------------------
+
+
+@register_lowering(AttentionSpec, "fwd", "dx")
+def _attention_rule(spec, pass_, design):
+    return _lower_attention(spec, pass_, design)
+
+
+register_unsupported(
+    AttentionSpec,
+    lambda p: ValueError(
+        f"attention has no {p!r} pass (no parameters); supported: fwd, dx"
+    ),
+)
+
+
+@register_lowering(LayerNormSpec, *PASSES)
+def _layernorm_rule(spec, pass_, design):
+    return _lower_layernorm(spec, pass_, design)
+
+
+register_unsupported(
+    LayerNormSpec,
+    lambda p: ValueError(
+        f"unknown layernorm pass {p!r}; expected one of {PASSES}"
+    ),
+)
+
+
+@register_lowering(ResidualAddSpec, "fwd", "dx")
+def _residual_rule(spec, pass_, design):
+    return _lower_residual(spec, pass_, design)
+
+
+register_unsupported(
+    ResidualAddSpec,
+    lambda p: ValueError(
+        f"residual-add has no {p!r} pass (no parameters); supported: fwd, dx"
+    ),
+)
+
+
+@register_lowering(EmbeddingSpec, "fwd", "dw")
+def _embedding_rule(spec, pass_, design):
+    return _lower_embedding(spec, pass_, design)
+
+
+def _embedding_unsupported(p):
+    if p == "dx":
+        return NotImplementedError(
+            "embedding has no dX lowering; its input is the one-hot token "
+            "stream, which carries no gradient"
+        )
+    return ValueError(f"unknown embedding pass {p!r}; expected one of {PASSES}")
+
+
+register_unsupported(EmbeddingSpec, _embedding_unsupported)
+
+
+@register_lowering(PosEmbedSpec, *PASSES)
+def _posembed_rule(spec, pass_, design):
+    return _lower_posembed(spec, pass_, design)
+
+
+register_unsupported(
+    PosEmbedSpec,
+    lambda p: ValueError(
+        f"unknown posembed pass {p!r}; expected one of {PASSES}"
+    ),
+)

@@ -1489,3 +1489,69 @@ def test_ntx_exec_templates_match_the_kernels(cuda_device):
                         cmem, inplace=True)
     y = cmem[40_000: 40_000 + 16 * 16 * 64].reshape(1, 16, 16, 64)
     torch.testing.assert_close(y, conv2d.conv2d_ntx(x, wt), rtol=1e-4, atol=1e-4)
+
+
+def _update_region(name, numel, momentum):
+    """An update-only region (the LM graphs' regions): one SGD stage of a
+    matmul weight of ``numel`` elements, no body stage."""
+    from repro_torch.lower import MatmulSpec
+
+    stage = Stage(node=name, pass_="upd", spec=MatmulSpec(2, numel, 1), in_edge=f"a_{name}",
+                  out_edge=f"a_{name}", param=f"w_{name}")
+    p = f"w_{name}"
+    inputs = ((p, False), (f"d_{p}", False)) + (((f"v_{p}", False),) if momentum else ())
+    outputs = ((f"{p}_new", "reduced"),) + (((f"v_{p}_new", "reduced"),) if momentum else ())
+    return RegionSpec(stages=(stage,), batch=2, lr=0.05, momentum=momentum, inputs=inputs,
+                      outputs=outputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("numel,momentum", [(8192, 0.0), (1_000_003, 0.9),
+                                            (155_582_464, 0.0)],
+                         ids=["small", "momentum", "qwen-head"])
+def test_update_only_region_matches_plain(cuda_device, numel, momentum):
+    """No body launch, the epilogue alone: the head's 155,582,464 elements
+    are within its 32-bit index. The update is two roundings per element in
+    both versions: the same bits."""
+    region = _update_region("head", numel, momentum)
+    g = torch.Generator(device="cpu").manual_seed(numel % 1000)
+    ins = {n: torch.randn(numel, generator=g).to(cuda_device) for n, _ in region.inputs}
+    fused.COUNTER.reset()
+    fn = fused.build_region_callable(region, device=cuda_device)
+    got = fn(ins)
+    want = fused.region_torch(region, ins)
+    torch.cuda.synchronize()
+    assert fused.COUNTER.launches == 1 and fused.COUNTER.entries == {fused.SMEM: 1}
+    k = fused.region_kernel(region, ins, cuda_device)
+    assert k.compiled.n_stages == 0 and k.cluster == 1
+    assert set(got) == set(want)
+    for name in got:
+        assert torch.equal(got[name], want[name]), name
+
+
+@pytest.mark.cuda
+def test_run_torch_tiny_lm_on_the_card_matches_the_cpu(cuda_device):
+    """tests/test_graph.py::_tiny_lm's step, fused and unfused, on the card
+    (matmuls on the tensor-core GEMM, 9 update-only regions) against the
+    same step on the CPU's plain versions."""
+    from repro_torch.lower import NetworkGraph, lower_training_step, one_hot_rows
+    from repro_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=16, n_heads=2,
+                      n_kv_heads=2, head_dim=8, d_ff=32, vocab_size=13)
+    graph = NetworkGraph.from_model_config(cfg, batch=2, seq=6, lr=0.05)
+    prog = lower_training_step(graph)
+    rng = np.random.RandomState(8)
+    ins = {"x": one_hot_rows(rng.randint(0, 13, 12), 13),
+           "onehot": one_hot_rows(rng.randint(0, 13, 12), 13), **graph.init_params(seed=1)}
+    want = run_torch(prog, ins, device="cpu")
+    for fuse in (True, False):
+        fused.COUNTER.reset()
+        streaming.COUNTER.reset()
+        got = run_torch(prog, ins, fuse=fuse, device=cuda_device)
+        torch.cuda.synchronize()
+        assert fused.COUNTER.launches == (9 if fuse else 0) and fused.COUNTER.plain_calls == 0
+        assert streaming.COUNTER.launches > 0 and streaming.COUNTER.plain_calls == 0
+        for k in want:
+            torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-4, atol=1e-5,
+                                       msg=f"{k} fuse={fuse}")

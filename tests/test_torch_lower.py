@@ -33,8 +33,8 @@ from repro_torch.lower import (
     NS_DESIGN,
     BiasSpec,
     Conv2dSpec,
+    EmbeddingSpec,
     FlattenSpec,
-    GraphNode,
     MatmulSpec,
     MaxPool2dSpec,
     ReluSpec,
@@ -116,12 +116,16 @@ def test_layer_programs_match_jax(spec, pass_, ns):
 
 
 def test_supported_matrix_matches_jax_on_the_ported_specs():
+    """Every spec type, the LM ones among them, and every pass: JAX's matrix."""
     got = supported_matrix()
     want = j_supported_matrix()
-    assert got == {k: want[k] for k in got}
-    assert set(got) == {"BiasSpec", "Conv2dSpec", "FlattenSpec", "MatmulSpec", "MaxPool2dSpec",
-                        "ReluSpec", "SgdUpdateSpec", "SoftmaxXentSpec"}
+    assert got == want
+    assert set(got) == {"AttentionSpec", "BiasSpec", "Conv2dSpec", "EmbeddingSpec",
+                        "FlattenSpec", "LayerNormSpec", "MatmulSpec", "MaxPool2dSpec",
+                        "PosEmbedSpec", "ReluSpec", "ResidualAddSpec", "SgdUpdateSpec",
+                        "SoftmaxXentSpec"}
     assert set(lower_layer(Conv2dSpec(8, 8, 3, 3, 3, 4))) == {"fwd", "dw", "dx"}
+    assert set(lower_layer(EmbeddingSpec(6, 11, 5))) == {"fwd", "dw"}
 
 
 def test_lower_errors_are_precise():
@@ -135,8 +139,16 @@ def test_lower_errors_are_precise():
         lower(ReluSpec((4,)), "dw")
     with pytest.raises(ValueError, match="no parameters"):
         lower(MaxPool2dSpec(8, 8, 2), "dw")
-    with pytest.raises(TypeError, match="ROADMAP A5"):
-        lower(JAttentionSpec(seq=8, n_heads=2, head_dim=4), "fwd")
+    # embedding dX: the error JAX declares (the token stream carries no gradient)
+    with pytest.raises(NotImplementedError, match="one-hot token stream") as got:
+        lower(EmbeddingSpec(6, 11, 5), "dx")
+    with pytest.raises(NotImplementedError) as want:
+        jlower(jrules.EmbeddingSpec(6, 11, 5), "dx")
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="unknown embedding pass"):
+        lower(EmbeddingSpec(6, 11, 5), "upd")
+    with pytest.raises(TypeError, match="no lowering rule for AttentionSpec"):
+        lower(JAttentionSpec(seq=8, n_heads=2, head_dim=4), "fwd")  # the JAX package's type
     # NS has no write-back AGU: one command per output element
     ns = lower(MatmulSpec(6, 5, 9), "fwd", design=NS_DESIGN)
     assert ns.n_offloads == 6 * 5 and ns.blocks[0].template.loops == (9, 1, 1, 1, 1)
@@ -256,12 +268,27 @@ def test_coverage_with_jax_spill_barriers_matches_jax(batch, img, coverage, regi
 
 
 def test_fan_out_graphs_are_not_lowered_yet():
-    graph = paper_cnn_graph(batch=2, img=8)
-    r1 = next(n for n in graph.nodes if n.name == "r1")
-    graph.nodes[graph.nodes.index(r1)] = GraphNode(**{**dataclasses.asdict(r1),
-                                                      "aux_edges": ("a_c1",)})
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        lower_training_step(graph)
+    """A fan-out graph lowers, with one ``:acc`` block per fan-out edge
+    (tests/test_graph.py::test_lm_dag_liveness_and_gradient_accumulation):
+    here the one-layer LM, whose residual skips each feed a layernorm and an
+    add, and the program is JAX's."""
+    from repro.lower import NetworkGraph as JNetworkGraph
+    from repro.models.config import ModelConfig as JModelConfig
+    from repro_torch.lower import NetworkGraph, edge_consumers
+    from repro_torch.models.config import ModelConfig
+
+    kw = dict(name="tiny", family="dense", n_layers=1, d_model=16, n_heads=2, n_kv_heads=2,
+              head_dim=8, d_ff=32, vocab_size=13)
+    graph = NetworkGraph.from_model_config(ModelConfig(**kw), batch=2, seq=6, lr=0.05)
+    prog = lower_training_step(graph)
+    multi = {e: [n.name for n in ns] for e, ns in edge_consumers(graph).items() if len(ns) > 1}
+    assert multi and all(len(names) == 2 for names in multi.values()), multi
+    acc_tags = {b.tag for b in prog.blocks if ":acc:" in b.tag}
+    assert {t.split(":")[0] for t in acc_tags} == set(multi)
+    assert prog.meta["peak_tcdm_bytes"] <= prog.meta["tcdm_budget_bytes"]
+    want = j_lower_training_step(
+        JNetworkGraph.from_model_config(JModelConfig(**kw), batch=2, seq=6, lr=0.05))
+    _same_program(got=prog, want=want)
 
 
 def test_run_reference_checks_its_inputs():
