@@ -34,6 +34,16 @@ main path, drives the main paths and checks that each went through its kernels:
   one step held against the same step on the plain versions (with a bf16
   control), the reduced config with ``check_grads`` and one reference step
   on ``ntx_exec``;
+* the mesh of HMCs: ``run_ntx_cnn`` with ``mesh=`` 2x2, 2x2 ``--shard 2d``
+  and 1x1 (``shard_training_step``; 403, 287 and 114 blocks, the modeled
+  mesh steps of ``time_mesh_step`` against the JAX package's), five steps
+  each: one B1 region a step on the single-device walk of 2x2 and 2d, four
+  regions that end in dW plus four plain SGD-update steps on the 1x1
+  sharded walk, every route's step 0 against the unsharded fused step and
+  the 1x1 regions against ``region_torch``, each gate reading two controls
+  it must reject (dW doubled by the gradient hook; one shard's updates
+  without the all-reduce); 2x2 ``--no-fuse`` on B2; the 2x2 program's
+  11,811 commands on ``ntx_exec`` against the unsharded program's;
 * ``repro_torch.models.lm.prefill`` of Mamba-2 780M at full width and
   depth (48 layers, d_model 1536, vocab 50,288) on 2 x 2,048 tokens, in
   bf16 and in fp32 (the SSD-scan kernels, 48 launches per prefill, both on
@@ -3133,6 +3143,290 @@ def lm_graph_route(smoke: Smoke, device):
                 "step_ms": ms, "step_device_ms": dev, "step_wall_ms": wall}
 
 
+# The mesh of HMCs (ROADMAP A6a): the main path's step (paper CNN, batch 64,
+# img 32, n_clusters 16) sharded by shard_training_step. Per (mesh, shard):
+# blocks, commands and images a cube of the JAX package's programs, and the
+# figures of its time_mesh_step / time_mesh_step_2d at the digits given (the
+# NTX cycle model at 1.5 GHz and the modeled links, not times on any chip).
+MESH_ROUTES = (("2x2", "1d"), ("2x2", "2d"), ("1x1", "1d"))
+MESH_PROGRAM = {("1x1", "1d"): (114, 11_606, 64), ("2x2", "1d"): (403, 11_811, 16),
+                ("2x2", "2d"): (287, 11_751, 16)}
+MESH_TIMING = {
+    ("1x1", "1d"): {"t_shard_ms": "0.7836687", "t_update_ms": "0", "parallel_eff": "1.0"},
+    ("2x2", "1d"): {"t_shard_ms": "0.204012", "t_update_ms": "0.1629168",
+                    "speedup": "2.13575", "parallel_eff": "0.533938"},
+    ("2x2", "2d"): {"n_micro": "16", "bubble_frac": "0.208807", "t_update_ms": "0.0812984",
+                    "parallel_eff": "0.477804", "link_congestion_ms": "2.305904"},
+}
+MESH_ALLREDUCE_BYTES = 43_752.0
+# B1 launches and plain SGD-update dispatches a step per route: the
+# single-device walk fuses the updates into its one region; the sharded walk
+# (1x1) runs four regions that end in dW and each update after the reduce
+MESH_LAUNCHES = {("2x2", "1d"): (1, 0), ("2x2", "2d"): (1, 0), ("1x1", "1d"): (4, 4)}
+
+
+def gate_units(got: dict, want: dict, band=None) -> dict[str, float]:
+    """max |got - want| / (atol + rtol |want|) of every output both hold at
+    one shape (NaN where a value is not finite); a gate passes at <= 1."""
+    import torch
+
+    band = band or TOL
+    out = {}
+    for k, w in want.items():
+        g = got.get(k)
+        if g is None or tuple(g.shape) != tuple(w.shape):
+            continue
+        d = (g.double() - w.double()).abs() / (band["atol"] + band["rtol"] * w.double().abs())
+        out[k] = float(d.max()) if bool(torch.isfinite(g).all()) else float("nan")
+    return out
+
+
+def gate_passes(units: dict) -> bool:
+    return bool(units) and all(u <= 1.0 for u in units.values())
+
+
+def same_bits(got: dict, want: dict) -> bool:
+    import torch
+
+    return all(torch.equal(got[k], want[k]) for k in want)
+
+
+def step_wall_ms(fn, n: int = 5) -> float:
+    """Mean host wall of ``fn`` to a device synchronise, over ``n`` warm calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def device_ms_retried(fn, tries: int = 3) -> float:
+    """device_ms over 5 calls, read again (up to ``tries`` times) where one
+    profiler session saw no device time."""
+    for _ in range(tries):
+        ms = device_ms(fn, iters=5)
+        if not math.isnan(ms):
+            return ms
+    return ms
+
+
+def mesh_figures(res, key) -> dict[str, float]:
+    """The sharded program's counts and modeled figures against the JAX
+    package's (MESH_PROGRAM, MESH_TIMING at their digits)."""
+    sh, tm = res["sharded"], res["mesh_timing"]
+    prog = sh.program
+    got = (len(prog.blocks), prog.n_commands, sh.shard_batch)
+    assert got == MESH_PROGRAM[key], (key, got)
+    assert sh.allreduce_bytes == MESH_ALLREDUCE_BYTES, sh.allreduce_bytes
+    s = tm.summary()
+    for name, fig in MESH_TIMING[key].items():
+        digits = len(fig.split(".")[1]) if "." in fig else 0
+        assert round(float(s[name]), digits) == float(fig), (key, name, s[name], fig)
+    return s
+
+
+def mesh_path(smoke: Smoke, device):
+    """The mesh of HMCs on one card (ROADMAP A6a): run_ntx_cnn with
+    mesh= 2x2 (1d), 2x2 --shard 2d and 1x1, five steps each at the main
+    path's batch, image size and seeds. The programs' counts and modeled
+    mesh steps against the JAX package's; each route's launches a step
+    (counts set to 0 just before the run, read just after: B1 once a step on
+    the single-device walk of 2x2 and 2d, four regions that end in dW plus
+    four plain SGD-update steps on the 1x1 sharded walk, no plain region);
+    each route's step-0 outputs against the unsharded fused step at TOL;
+    the 1x1 regions (no update epilogue) against region_torch. Two wrong
+    runs read through the same gate must fail it: the 1x1 route with a
+    gradient hook doubling dW, and the 2x2 walk of the first shard's
+    images alone (its updates from that shard's dW: a missing all-reduce).
+    Then 2x2 --no-fuse (B2, 11 calls a step) against the unsharded
+    --no-fuse step, and the 2x2 program's combined stream on ntx_exec
+    against the unsharded program's. Times: each route's warm step wall
+    and device time beside the unsharded fused step, A B B A.
+    """
+    import torch
+
+    from repro_torch.kernels import fused, ntx_exec, streaming
+    from repro_torch.launch.train import run_ntx_cnn
+    from repro_torch.lower import (PlanCache, executors, lower_training_step, run_reference,
+                                   run_torch)
+    from repro_torch.lower.mesh import shard_training_step
+
+    graph, inputs = main_path_graph_inputs(device)
+    logits = graph.logits_edge
+    base = run_torch(graph, inputs, device=device)
+    base_nofuse = run_torch(graph, inputs, fuse=False, device=device)
+    torch.cuda.synchronize()
+    _, card = device_info()
+    counters = (fused.COUNTER, streaming.COUNTER)
+    report: dict = {}
+    programs = {}
+    for key in MESH_ROUTES:
+        mesh, shard = key
+        print(f"  -- mesh {mesh} --shard {shard}")
+        for c in counters:
+            c.reset()
+        res = run_ntx_cnn(STEPS, BATCH, IMG, device=device, mesh=mesh, shard=shard)
+        counts = {c.name: (c.launches, c.plain_calls) for c in counters}
+        entries = dict(fused.COUNTER.entries)
+        upd = sum(p.calls for p in res["cache"]._plans.values() if p.key[1] == "upd")
+        s = mesh_figures(res, key)
+        sh = res["sharded"]
+        programs[key] = sh
+        regions, upd_steps = MESH_LAUNCHES[key]
+        print(f"  {mesh} {shard}: route {res['route']}; launches / plain calls {counts}, "
+              f"fused_region by C entry {entries}, plain SGD-update dispatches {upd} "
+              f"({STEPS} steps); modeled {s}")
+        assert res["route"] == ("sharded" if mesh == "1x1" else "walk"), res["route"]
+        assert entries == {fused.SMEM: STEPS * regions}, entries
+        assert counts == {"fused_region": (STEPS * regions, 0),
+                          "streaming_matmul": (0, 0)}, counts
+        assert upd == STEPS * upd_steps, upd
+        first = res["first_outputs"]
+        assert set(first) == set(base)
+        units = gate_units(first, base)
+        worst = max(units, key=units.get)
+        bits = same_bits(first, base)
+        print(f"  {mesh} {shard} step 0 vs the unsharded fused step: worst {worst} at "
+              f"{units[worst]:.4f} of rtol {TOL['rtol']} / atol {TOL['atol']}; bits equal "
+              f"{bits}; losses {[round(x, 5) for x in res['losses']]}")
+        assert gate_passes(units), units
+        assert res["losses"][-1] < res["losses"][0], res["losses"]
+        report[f"{mesh}:{shard}"] = {
+            "route": res["route"], "fused_region_launches_a_step": regions,
+            "update_dispatches_a_step": upd_steps, "gate_worst": units[worst],
+            "bits_equal": bits, "losses": res["losses"],
+            "warm_wall_ms": sum(res["walls"][1:]) / len(res["walls"][1:]) * 1e3,
+            "modeled": s,
+        }
+
+    # the 1x1 route's four regions (dW, no update) against region_torch
+    class Recording(PlanCache):
+        def __init__(self):
+            super().__init__()
+            self.regions: list = []
+
+        def get(self, spec, pass_, dev):
+            plan = super().get(spec, pass_, dev)
+            if pass_ != "region":
+                return plan
+
+            def recorded(j):
+                out = plan(j)
+                self.regions.append((spec, dict(j), out))
+                return out
+
+            return recorded
+
+    sh1 = programs[("1x1", "1d")]
+    rec = Recording()
+    run_torch(sh1.program, inputs, device=device, cache=rec)
+    assert len(rec.regions) == 4, len(rec.regions)
+    for spec, ins, got in rec.regions:
+        assert not any(st.pass_ == "upd" for st in spec.stages), spec.label
+        assert any(k.startswith("d_") for k, kind in spec.outputs if kind == "reduced")
+        want = fused.region_torch(spec, ins)
+        units = gate_units(got, want)
+        print(f"  1x1 region {spec.label}: outputs {[k for k, _ in spec.outputs]}; vs "
+              f"region_torch worst {max(units.values()):.4f} of the band, max_abs "
+              f"{max(max_abs(got[k], want[k]) for k in want):.3e}")
+        assert gate_passes(units), (spec.label, units)
+
+    # controls: each wrong run must fail the route gate
+    cache = PlanCache()
+
+    def plan(spec, pass_):
+        return cache.get(spec, pass_, device)
+
+    doubled = executors._walk(graph, inputs, plan, executors.step_fusion(sh1.program).segments,
+                              keep_grads=True, grad_reduce=lambda g: 2 * g)
+    sh4 = programs[("2x2", "1d")]
+    shard0 = {k: (v[:BATCH // 4] if k in (graph.input_edge, graph.label_edge) else v)
+              for k, v in inputs.items()}
+    lone = executors._walk(graph, shard0, plan, executors.step_fusion(sh4.program).segments,
+                           keep_grads=True, batch=BATCH // 4)
+    lone_want = {**base, logits: base[logits][:BATCH // 4]}
+    controls = {}
+    for name, got, want in (("1x1, dW doubled by the gradient hook", doubled, base),
+                            ("2x2, updates from shard 0's dW alone", lone, lone_want)):
+        units = gate_units(got, want)
+        worst = max(units, key=lambda k: math.inf if math.isnan(units[k]) else units[k])
+        controls[name] = units[worst]
+        print(f"  control {name}: worst {worst} at {units[worst]:.4g} of the band -> "
+              f"{'passes' if gate_passes(units) else 'rejected'}")
+        assert not gate_passes(units), f"the route gate let the control through: {name}"
+
+    # 2x2 --no-fuse: every conv and matmul pass on B2
+    for c in counters:
+        c.reset()
+    res = run_ntx_cnn(1, BATCH, IMG, device=device, mesh="2x2", fuse=False)
+    counts = {c.name: (c.launches, c.plain_calls) for c in counters}
+    units = gate_units(res["first_outputs"], base_nofuse)
+    print(f"  2x2 --no-fuse, one step: launches / plain calls {counts}; vs the unsharded "
+          f"--no-fuse step worst {max(units.values()):.4f} of the band, bits equal "
+          f"{same_bits(res['first_outputs'], base_nofuse)}")
+    assert counts == {"fused_region": (0, 0), "streaming_matmul": (11, 0)}, counts
+    assert gate_passes(units), units
+    report["2x2:1d --no-fuse"] = {"streaming_matmul_launches_a_step": 11,
+                                  "gate_worst": max(units.values())}
+
+    # the 2x2 program's combined stream on ntx_exec, beside the unsharded program's
+    prog = lower_training_step(graph)
+    ntx_exec.COUNTER.reset()
+    ref = run_reference(prog, inputs, device=device)
+    got = run_reference(sh4.program, inputs, device=device)
+    torch.cuda.synchronize()
+    modes = dict(ntx_exec.COUNTER.entries)
+    launches = (ntx_exec.COUNTER.launches, ntx_exec.COUNTER.plain_calls)
+    n_sh = sh4.program.n_commands
+    units = gate_units(got, ref)
+    bits = torch.equal(got[logits], ref[logits])
+    sh_modes = ntx_exec.program_table(sh4.program)["per_mode"]
+    print(f"  ntx_exec: the 2x2 stream ({n_sh} commands, modes {sh_modes}) and the unsharded "
+          f"one ({prog.n_commands}): launches / plain calls {launches}; sharded vs unsharded "
+          f"worst {max(units.values()):.4f} of the band, logits bit-identical {bits}, every "
+          f"output {same_bits(got, ref)}")
+    assert launches == (n_sh + prog.n_commands, 0), launches
+    assert gate_passes(units), units
+    ref_ms = time_ms(lambda: run_reference(sh4.program, inputs, device=device), iters=3, warmup=1)
+    print(f"  on {card}: the 2x2 stream on ntx_exec {ref_ms:.3f} ms a step by events")
+    report["ntx_exec 2x2 stream"] = {"commands": n_sh, "launches_by_mode": sh_modes,
+                                     "gate_worst": max(units.values()), "logits_bits": bits,
+                                     "ms": ref_ms}
+
+    # times: each route beside the unsharded fused step, A B B A
+    def unsharded():
+        return run_torch(graph, inputs, device=device, cache=base_cache)
+
+    base_cache = PlanCache()
+    for key in MESH_ROUTES:
+        cache = PlanCache()
+        prog = programs[key].program
+
+        def routed(prog=prog, cache=cache):
+            return run_torch(prog, inputs, device=device, cache=cache)
+
+        walls = [step_wall_ms(f) for f in (unsharded, routed, routed, unsharded)]
+        devs = [device_ms_retried(f) for f in (unsharded, routed, routed, unsharded)]
+        r = report[f"{key[0]}:{key[1]}"]
+        r.update(step_wall_ms=(walls[1] + walls[2]) / 2, device_ms=(devs[1] + devs[2]) / 2,
+                 unsharded_wall_ms=(walls[0] + walls[3]) / 2,
+                 unsharded_device_ms=(devs[0] + devs[3]) / 2)
+        print(f"  on {card}: {key[0]} {key[1]} warm step wall {r['step_wall_ms']:.3f} ms, "
+              f"{r['device_ms']:.4f} ms device; unsharded fused step {r['unsharded_wall_ms']:.3f} "
+              f"ms, {r['unsharded_device_ms']:.4f} ms device (A B B A walls "
+              f"{', '.join(f'{w:.3f}' for w in walls)}; device "
+              f"{', '.join(f'{d:.4f}' for d in devs)})")
+    report["controls"] = controls
+    smoke.kernels["fused_region"]["mesh_route"] = {
+        k: v for k, v in report.items() if k in ("2x2:1d", "2x2:2d", "1x1:1d", "controls")}
+    smoke.kernels["streaming_matmul"]["mesh_route"] = report["2x2:1d --no-fuse"]
+    smoke.kernels["ntx_exec"]["mesh_route"] = report["ntx_exec 2x2 stream"]
+
+
 def main() -> int:
     import torch
 
@@ -3153,6 +3447,10 @@ def main() -> int:
         smoke.phase("ntx program path", ntx_program_path, smoke, device)
         smoke.phase("obs and timing model", obs_and_timing, device)
         smoke.phase("LM graph route", lm_graph_route, smoke, device)
+        if {"fused_region", "streaming_matmul", "ntx_exec"} <= set(smoke.kernels):
+            smoke.phase("mesh", mesh_path, smoke, device)
+        else:
+            smoke.failures.append("mesh (needs the fused region, streaming and ntx_exec phases)")
         smoke.phase("ssd_scan vs plain", check_ssd, smoke, device)
         if "ssd_scan" in smoke.kernels:
             smoke.phase("prefill path", prefill_path, smoke, device)

@@ -13,12 +13,22 @@ program's commands is printed), per-node streaming matmuls with
 ``torch.autograd`` of a plain graph oracle. Runs on the CUDA device unless
 ``--device cpu`` is given.
 
+``--mesh RxC`` shards the step program across an RxC mesh of HMCs
+(:func:`~repro_torch.lower.mesh.shard_training_step`; ``--shard 2d`` makes
+rows pipeline stages and columns tensor/data shards), prints the mesh, the
+route the executor takes (:func:`~repro_torch.lower.executors.mesh_route`)
+and the modeled mesh step of :func:`~repro_torch.runtime.mesh.time_mesh_step`
+(NTX cycle model and link schedule, not a time on any chip), then trains
+the sharded program.
+
 ``--metrics OUT.jsonl`` writes one JSON record per step (loss, wall
 seconds, the step's counters: the program's closed-form offload, cycle and
 DMA counts, the plan cache's and the fuser's); ``--trace OUT.json`` writes
 one chrome trace (Perfetto or ``chrome://tracing``) with the host's
 lowering and dispatch spans and the NTX cycle model's cluster lanes of the
-step program. Either also prints the top-k hotspot table.
+step program (with ``--mesh``: the lead cube's shard lanes, the weight
+exchange's link lanes and their flows). Either also prints the top-k
+hotspot table.
 """
 
 from __future__ import annotations
@@ -51,23 +61,129 @@ from repro_torch.lower import (
     run_torch,
     train_graph,
 )
+from repro_torch.lower import executors
+from repro_torch.lower.mesh import parse_mesh, shard_training_step
+from repro_torch.runtime.mesh import time_mesh_step
 
 #: the CLI's learning rate for --model (the JAX CLI's --lr default)
 LM_LR = 3e-3
 
 
+def validate_mesh_args(mesh: str | None, shard: str, batch: int) -> tuple[int, int] | None:
+    """Upfront ``--mesh`` / ``--shard`` validation with actionable errors.
+
+    Checks what would otherwise surface as a deep splitter failure: the
+    mesh spec parses as RxC, the mesh is not degenerate, the batch divides
+    over the cubes, and ``--shard 2d`` has a mesh to shard over. Fewer
+    ranks than cubes is only a note — the executor takes the single-device
+    walk. Returns (rows, cols), or None when no mesh was requested.
+    """
+    if shard not in ("1d", "2d"):
+        raise SystemExit(f"--shard must be '1d' or '2d', got {shard!r}")
+    if mesh is None:
+        if shard == "2d":
+            raise SystemExit(
+                "--shard 2d needs a mesh: pass --mesh RxC (rows = pipeline "
+                "stages, columns = tensor/data shards), e.g. --mesh 2x2"
+            )
+        return None
+    try:
+        rows, cols = parse_mesh(mesh)
+    except ValueError as e:
+        raise SystemExit(
+            f"bad --mesh {mesh!r}: {e} (expected RxC, e.g. --mesh 2x4)"
+        ) from None
+    if rows < 1 or cols < 1:
+        raise SystemExit(
+            f"--mesh {mesh!r} is degenerate: both dimensions must be >= 1"
+        )
+    n = rows * cols
+    if batch % n != 0:
+        raise SystemExit(
+            f"--batch {batch} does not divide over the {rows}x{cols} mesh "
+            f"({n} cubes); pick a batch that is a multiple of {n}, e.g. "
+            f"--batch {max(n, (batch // n + 1) * n)}"
+        )
+    ranks = executors.world_size()
+    if ranks < n:
+        print(f"note: {ranks} rank(s) < {n} cubes — run_torch will use the "
+              f"(bit-identical) single-device walk")
+    return rows, cols
+
+
+def _shard(graph, program, mesh: str, shard: str, n_clusters: int, unit: str):
+    """Shard ``program`` over ``mesh``; print the mesh, the executor's route,
+    the 2D pipeline and the modeled mesh step (the JAX driver's lines).
+    Returns the sharded step, its route and its modeled timing."""
+    sharded = shard_training_step(graph, mesh_shape=mesh, n_clusters=n_clusters,
+                                  program=program, shard=shard)
+    prog = sharded.program
+    route = executors.mesh_route(prog)
+    ranks = executors.world_size()
+    how = ("the sharded walk (1 rank: the gradient reduce over one shard)"
+           if route == "sharded"
+           else f"single-device walk ({ranks} rank(s) < {sharded.n_alive} HMCs)"
+           if ranks < sharded.n_alive
+           else f"single-device walk (batch {graph.batch} does not divide over "
+                f"{sharded.n_alive} HMCs)")
+    print(f"mesh {sharded.mesh_shape[0]}x{sharded.mesh_shape[1]}: "
+          f"{sharded.n_hmcs} HMCs x {sharded.shard_batch} {unit}, "
+          f"{len(prog.blocks)} blocks incl. allreduce epilogue; "
+          f"executing via {how}")
+    if sharded.shard == "2d":
+        pmeta = prog.meta["mesh"]["pipeline"]
+        stages = [">".join(st) for st in pmeta["stages"]]
+        print(f"2d pipeline: {pmeta['n_stages']} stage(s) "
+              f"[{' | '.join(stages)}], "
+              f"{pmeta['n_micro']} microbatch(es), "
+              f"{len(pmeta['xfers'])} boundary transfer(s)")
+    tm = time_mesh_step(sharded, n_clusters=n_clusters)
+    print(f"modeled mesh step: shard {tm.t_shard*1e3:.3f} ms + "
+          f"update {tm.t_update*1e3:.3f} ms "
+          f"-> speedup {tm.speedup:.2f}, "
+          f"parallel eff {tm.parallel_eff:.1%}")
+    if sharded.shard == "2d":
+        print(f"2d timing: compute {tm.t_compute*1e3:.3f} ms "
+              f"(bubble {tm.bubble_frac:.1%}), boundary "
+              f"{tm.t_boundary*1e3:.3f} ms (overlapped)")
+    return {"sharded": sharded, "route": route, "mesh_timing": tm}
+
+
+def _trace_lanes(collector, program, sharded, n_clusters: int, trace: str) -> None:
+    """The modeled lanes of the step: the lead cube's shard and the link
+    exchange with a mesh, else the whole program on ``hmc0``."""
+    if sharded is not None:
+        result, _ = collector.add_mesh_step(sharded, n_clusters=n_clusters)
+    else:
+        # the lane-rendering timing run must not book into the run's counters
+        with obs.use_registry(None):
+            result = run_timing(program, n_clusters=n_clusters)
+        collector.add_cluster_lanes(program, result, n_clusters, pid="hmc0")
+        exec_evs = [e for e in collector.events if e.get("cat") == "exec"]
+        collector.link_flows(exec_evs, [])
+    print(f"merged trace: {collector.save(trace)} ({len(collector.events)} events; "
+          f"modeled step {result.total_cycles} NTX cycles) — open in "
+          "https://ui.perfetto.dev or chrome://tracing")
+
+
 def run_ntx_cnn(steps: int, batch: int, img: int, *, n_clusters: int = 16,
                 lr: float = 0.05, momentum: float = 0.9, fuse: bool = True,
-                device=None, metrics: str | None = None,
-                trace: str | None = None) -> dict:
+                device=None, mesh: str | None = None, shard: str = "1d",
+                metrics: str | None = None, trace: str | None = None) -> dict:
     """Train the paper CNN for ``steps`` steps; print the per-step losses.
 
     ``n_clusters`` sizes the program's TCDM budget and the timing model.
-    ``metrics`` streams one JSONL record per step; ``trace`` writes the
-    merged chrome trace (host lowering / dispatch spans, the step program's
-    modeled cluster exec / DMA lanes, flow events). Returns the
+    ``mesh="RxC"`` shards the step program across a mesh of HMCs
+    (``shard`` "1d" or "2d") and trains the sharded program on the route
+    :func:`~repro_torch.lower.executors.mesh_route` names, printing the
+    modeled mesh step. ``metrics`` streams one JSONL record per step;
+    ``trace`` writes the merged chrome trace (host lowering / dispatch
+    spans, the step program's modeled cluster exec / DMA lanes — with a
+    mesh the lead cube's and the link lanes — flow events). Returns the
     :func:`~repro_torch.lower.graph.train_graph` result dict plus the plan
-    cache (``"cache"``).
+    cache (``"cache"``) and, with a mesh, the
+    :class:`~repro_torch.lower.mesh.ShardedTrainStep` (``"sharded"``), its
+    route (``"route"``) and modeled timing (``"mesh_timing"``).
     """
     dev = resolve_device(device)
     registry = obs.CounterRegistry() if (metrics or trace) else None
@@ -85,6 +201,10 @@ def run_ntx_cnn(steps: int, batch: int, img: int, *, n_clusters: int = 16,
               f"peak TCDM {program.meta['peak_tcdm_bytes']} / "
               f"{program.meta['tcdm_budget_bytes']} B "
               f"({len(program.meta['spilled'])} spilled)")
+        mesh_res = {}
+        if mesh is not None:
+            mesh_res = _shard(graph, program, mesh, shard, n_clusters, "images")
+            program = mesh_res["sharded"].program
         batch_fn = frequency_band_batches(np.random.RandomState(0), batch, img,
                                           graph.loss.classes)
         cache = PlanCache()
@@ -92,15 +212,7 @@ def run_ntx_cnn(steps: int, batch: int, img: int, *, n_clusters: int = 16,
                           params=graph.init_params(seed=0), fuse=fuse, device=dev,
                           cache=cache, metrics_path=metrics)
         if collector is not None:
-            # the lane-rendering timing run must not book into the run's counters
-            with obs.use_registry(None):
-                result = run_timing(program, n_clusters=n_clusters)
-            collector.add_cluster_lanes(program, result, n_clusters, pid="hmc0")
-            exec_evs = [e for e in collector.events if e.get("cat") == "exec"]
-            collector.link_flows(exec_evs, [])
-            print(f"merged trace: {collector.save(trace)} ({len(collector.events)} events; "
-                  f"modeled step {result.total_cycles} NTX cycles) — open in "
-                  "https://ui.perfetto.dev or chrome://tracing")
+            _trace_lanes(collector, program, mesh_res.get("sharded"), n_clusters, trace)
     losses = res["losses"]
     for i, (loss, w) in enumerate(zip(losses, res["walls"])):
         print(f"step {i:5d} loss={loss:.4f} ({w*1e3:.0f} ms)", flush=True)
@@ -120,6 +232,7 @@ def run_ntx_cnn(steps: int, batch: int, img: int, *, n_clusters: int = 16,
         print(obs.format_hotspots(registry))
     print(f"done: {steps} ntx steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     res["cache"] = cache
+    res.update(mesh_res)
     return res
 
 
@@ -196,8 +309,9 @@ def check_lm_grads(graph, program, x, labels, *, fuse: bool = True, device=None,
 
 def run_ntx_lm(model: str, steps: int, batch: int, seq: int, *, n_clusters: int = 16,
                lr: float = 0.05, reduced: bool = True, mesh: str | None = None,
-               fuse: bool = True, device=None, metrics: str | None = None,
-               trace: str | None = None, check_grads: bool = False) -> dict:
+               shard: str = "1d", fuse: bool = True, device=None,
+               metrics: str | None = None, trace: str | None = None,
+               check_grads: bool = False) -> dict:
     """Train a decoder-only transformer, every step one compiled NtxProgram.
 
     The named config of :mod:`repro_torch.configs` (reduced to smoke scale
@@ -213,17 +327,15 @@ def run_ntx_lm(model: str, steps: int, batch: int, seq: int, *, n_clusters: int 
 
     ``check_grads`` then runs one step at the initial parameters and holds
     every ``d_<param>`` against ``torch.autograd`` of a plain oracle
-    (:func:`check_lm_grads`). ``mesh`` is refused: the mesh executor is not
-    ported (ROADMAP A6). Returns the :func:`~repro_torch.lower.train_graph`
-    result plus the plan cache (``"cache"``), the block-engine result
-    (``"timing"``) and, with ``check_grads``, the worst relative gradient
-    error (``"grad_err"``).
+    (:func:`check_lm_grads`). ``mesh="RxC"`` (``shard`` "1d" or "2d")
+    shards the step program across a mesh of HMCs, as :func:`run_ntx_cnn`
+    does. Returns the :func:`~repro_torch.lower.train_graph` result plus the
+    plan cache (``"cache"``), the block-engine result (``"timing"``), with a
+    mesh ``"sharded"``, ``"route"`` and ``"mesh_timing"``, and, with
+    ``check_grads``, the worst relative gradient error (``"grad_err"``).
     """
     from repro_torch.configs import get_config, reduce_config
 
-    if mesh is not None:
-        raise NotImplementedError("--mesh: the mesh executor (shard_training_step, "
-                                  "time_mesh_step) is not ported yet (ROADMAP A6)")
     dev = resolve_device(device)
     cfg = get_config(model)
     if reduced:
@@ -250,20 +362,17 @@ def run_ntx_lm(model: str, steps: int, batch: int, seq: int, *, n_clusters: int 
             timed = run_timing(program, n_clusters=n_clusters, engine="block")
         print(f"timing engine: {program.n_offloads} offloads, {program.n_commands} commands, "
               f"{timed.total_cycles} cycles/step on {n_clusters} clusters (NTX cycle model)")
+        mesh_res = {}
+        if mesh is not None:
+            mesh_res = _shard(graph, program, mesh, shard, n_clusters, "sequences")
+            program = mesh_res["sharded"].program
         batch_fn = lm_token_batches(np.random.RandomState(0), batch, seq, cfg.vocab_size)
         cache = PlanCache()
         res = train_graph(graph, steps, batch_fn, program=program,
                           params=graph.init_params(seed=0), fuse=fuse, device=dev,
                           cache=cache, metrics_path=metrics)
         if collector is not None:
-            with obs.use_registry(None):
-                result = run_timing(program, n_clusters=n_clusters)
-            collector.add_cluster_lanes(program, result, n_clusters, pid="hmc0")
-            exec_evs = [e for e in collector.events if e.get("cat") == "exec"]
-            collector.link_flows(exec_evs, [])
-            print(f"merged trace: {collector.save(trace)} ({len(collector.events)} events; "
-                  f"modeled step {result.total_cycles} NTX cycles) — open in "
-                  "https://ui.perfetto.dev or chrome://tracing")
+            _trace_lanes(collector, program, mesh_res.get("sharded"), n_clusters, trace)
     losses = res["losses"]
     for i, (loss, w) in enumerate(zip(losses, res["walls"])):
         print(f"step {i:5d} loss={loss:.4f} ({w*1e3:.0f} ms)", flush=True)
@@ -293,6 +402,7 @@ def run_ntx_lm(model: str, steps: int, batch: int, seq: int, *, n_clusters: int 
     print(f"done: {steps} LM ntx steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     res["cache"] = cache
     res["timing"] = timed
+    res.update(mesh_res)
     return res
 
 
@@ -317,8 +427,17 @@ def _cli(argv=None):
                          "parameter gradient against torch.autograd of a plain "
                          "graph oracle at rtol 1e-4 / atol 1e-5")
     ap.add_argument("--mesh", default=None, metavar="RxC",
-                    help="shard the step across a mesh of HMCs: not ported yet "
-                         "(ROADMAP A6), refused")
+                    help="shard the train step across an RxC mesh of HMCs (batch "
+                         "must divide evenly); prints the route the executor takes "
+                         "and the modeled mesh timing")
+    ap.add_argument("--shard", default="1d", choices=["1d", "2d"],
+                    help="mesh sharding layout. 1d: pure data parallelism (every "
+                         "cube runs the whole model on a batch slice). 2d: mesh "
+                         "rows are GPipe-style pipeline stages with explicit "
+                         "send/recv link traffic, columns tensor/data-shard each "
+                         "stage")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="fault injection: not ported yet (ROADMAP A6c), refused")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--img", type=int, default=16, help="CNN input image size")
@@ -335,19 +454,22 @@ def _cli(argv=None):
                     help="write the merged chrome trace (host spans, modeled "
                          "cluster lanes)")
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        raise SystemExit("--mesh: the mesh executor is not ported yet (ROADMAP A6)")
+    if args.chaos is not None:
+        raise SystemExit("--chaos: fault injection (ChaosController, elastic re-shard "
+                         "and replay) is not ported yet (ROADMAP A6c)")
+    validate_mesh_args(args.mesh, args.shard, args.batch)
     if args.model is not None:
         res = run_ntx_lm(args.model, args.steps, args.batch, args.seq,
                          n_clusters=args.n_clusters, lr=args.lr, reduced=args.reduced,
-                         fuse=not args.no_fuse, device=args.device, metrics=args.metrics,
-                         trace=args.trace, check_grads=args.check_grads)
+                         mesh=args.mesh, shard=args.shard, fuse=not args.no_fuse,
+                         device=args.device, metrics=args.metrics, trace=args.trace,
+                         check_grads=args.check_grads)
         if len(res["losses"]) >= 3 and not res["losses"][-1] < res["losses"][0]:
             raise SystemExit("ntx LM training did not decrease the loss")
         return
     res = run_ntx_cnn(args.steps, args.batch, args.img, n_clusters=args.n_clusters,
-                      fuse=not args.no_fuse, device=args.device,
-                      metrics=args.metrics, trace=args.trace)
+                      fuse=not args.no_fuse, device=args.device, mesh=args.mesh,
+                      shard=args.shard, metrics=args.metrics, trace=args.trace)
     if len(res["losses"]) >= 3 and not res["losses"][-1] < res["losses"][0]:
         raise SystemExit("ntx CNN training did not decrease the loss")
 

@@ -7,6 +7,9 @@
     res   = run_timing(prog, n_clusters=16)       # the NTX cycle model
 
     lm = NetworkGraph.from_model_config(cfg, batch=2, seq=64)  # a decoder-only LM DAG
+
+    sharded = shard_training_step(graph, mesh_shape=(2, 2))  # a mesh of HMCs, "1d" / "2d"
+    outs    = run_torch(sharded.program, inputs)  # the mesh route (executors.mesh_route)
 """
 
 from repro_torch.lower.executors import PlanCache, run_reference, run_timing, run_torch
@@ -41,6 +44,12 @@ from repro_torch.lower.ir import (
     RegionAllocator,
     TensorRegion,
 )
+from repro_torch.lower.mesh import (
+    ShardedTrainStep,
+    parse_mesh,
+    reshard_training_step,
+    shard_training_step,
+)
 from repro_torch.lower.rules import (
     PASSES,
     AttentionSpec,
@@ -68,9 +77,10 @@ __all__ = [
     "LayerNormSpec", "LivenessAllocator", "MatmulSpec", "MaxPool2dSpec", "NS_DESIGN",
     "NTX_DESIGN", "NetworkGraph", "NtxProgram", "PlanCache", "PosEmbedSpec",
     "RegionAllocator", "RegionSpec", "ReluSpec", "ResidualAddSpec", "Segment",
-    "SgdUpdateSpec", "SoftmaxXentSpec", "Stage", "TensorRegion", "edge_consumers",
-    "frequency_band_batches", "lm_token_batches", "lower", "lower_layer",
-    "lower_training_step", "one_hot_rows", "paper_cnn_graph", "plan_fusion",
-    "register_lowering", "run_reference", "run_timing", "run_torch", "softmax_xent_loss",
-    "step_schedule", "supported_matrix", "train_graph",
+    "SgdUpdateSpec", "ShardedTrainStep", "SoftmaxXentSpec", "Stage", "TensorRegion",
+    "edge_consumers", "frequency_band_batches", "lm_token_batches", "lower",
+    "lower_layer", "lower_training_step", "one_hot_rows", "paper_cnn_graph",
+    "parse_mesh", "plan_fusion", "register_lowering", "reshard_training_step",
+    "run_reference", "run_timing", "run_torch", "shard_training_step",
+    "softmax_xent_loss", "step_schedule", "supported_matrix", "train_graph",
 ]

@@ -43,6 +43,8 @@ uses autograd.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -396,12 +398,59 @@ def _as_f32(inputs: dict, device: torch.device) -> dict:
     return out
 
 
-def _fusion_for(program: NtxProgram) -> FusionPlan:
-    """The program's memoised fusion plan (it counts the program's commands)."""
-    plan = program.meta.get("_fusion_plan")
+def _fusion_for(program: NtxProgram, *, fuse_updates: bool = True) -> FusionPlan:
+    """The program's memoised fusion plan for ``fuse_updates`` (it counts the
+    program's commands); one plan per value, as JAX keeps ``_fusion_plans``."""
+    plans = program.meta.setdefault("_fusion_plans", {})
+    plan = plans.get(fuse_updates)
     if plan is None:
-        plan = program.meta["_fusion_plan"] = plan_fusion(program)
+        plan = plans[fuse_updates] = plan_fusion(program, fuse_updates=fuse_updates)
     return plan
+
+
+def _route_of(program: NtxProgram | None) -> str | None:
+    """The mesh route of ``program`` (None when it is not sharded)."""
+    return mesh_route(program) if program is not None and "mesh" in program.meta else None
+
+
+def step_fusion(program: NtxProgram) -> FusionPlan:
+    """The fusion plan :func:`run_torch` walks for ``program``: updates fused
+    unless its mesh route is the sharded walk."""
+    return _fusion_for(program, fuse_updates=_route_of(program) != "sharded")
+
+
+def world_size() -> int:
+    """Ranks of the initialised ``torch.distributed`` process group; 1 when
+    none is initialised (the mesh route's "devices")."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def mesh_route(program: NtxProgram) -> str:
+    """How :func:`run_torch` runs a mesh-sharded program (``meta["mesh"]``):
+    JAX's ``_run_pallas_graph_mesh`` rule, with devices read as ranks.
+
+    * ``"walk"``: fewer ranks than live HMCs, or a batch the live HMCs do
+      not divide — the whole batch on the caller's device, the single-device
+      walk with the updates fused (``fuse_updates=True``);
+    * ``"sharded"``: one live HMC and one rank — the shard walks its slice
+      (the whole batch) with every SGD update a per-node step after the
+      gradient reduce (``fuse_updates=False``);
+    * two or more ranks otherwise: NotImplementedError (ROADMAP A6b).
+    """
+    mesh = program.meta["mesh"]
+    alive = mesh.get("alive")
+    n_alive = len(alive) if alive is not None else mesh["n_hmcs"]
+    ranks = world_size()
+    if ranks < n_alive or program.meta["graph"].batch % n_alive:
+        return "walk"
+    if ranks == 1:
+        return "sharded"
+    raise NotImplementedError(
+        f"{ranks} ranks for {n_alive} live HMCs: the sharded walk over a "
+        "torch.distributed process group is not ported yet (ROADMAP A6b)")
 
 
 def _record_cache_delta(reg, cache: PlanCache, before) -> None:
@@ -454,6 +503,12 @@ def run_torch(graph, inputs: dict, *, fuse: bool = True, keep_grads: bool = True
     ``keep_grads``), ``<param>_new`` and ``v_<param>_new`` as tensors on the
     device.
 
+    A program sharded over a mesh of HMCs (``meta["mesh"]``, from
+    :func:`~repro_torch.lower.mesh.shard_training_step`) takes the route
+    :func:`mesh_route` names: the single-device walk, or the sharded walk,
+    whose gradient reduce (over one shard: the identity) runs on every
+    ``d_<param>`` between its dW and its SGD update.
+
     With a registry active it books the plan cache's ``hits``, ``misses``
     and ``calls`` of this call under ``plan_cache/`` (the JAX executor's
     ``retraces`` has no counterpart: the cache holds Python callables, with
@@ -479,14 +534,16 @@ def run_torch(graph, inputs: dict, *, fuse: bool = True, keep_grads: bool = True
         p = cache.get(spec, pass_, dev)
         return p if col is None else _spanned(col, p, spec, pass_)
 
+    route = _route_of(program)
     fusion = None
     if fuse:
-        fusion = (_fusion_for(program) if program is not None
-                  else cache.fusion_plan(graph, keep_grads))
+        fusion = (_fusion_for(program, fuse_updates=route != "sharded")
+                  if program is not None else cache.fusion_plan(graph, keep_grads))
         segments = fusion.segments
     else:
         segments = [Segment(step=k) for k in step_schedule(graph, keep_grads)]
-    out = _walk(graph, j, plan, segments, keep_grads=keep_grads)
+    out = _walk(graph, j, plan, segments, keep_grads=keep_grads,
+                grad_reduce=_identity if route == "sharded" else None)
     if reg is not None:
         if program is not None:
             obs.record_program(reg, program)
@@ -495,7 +552,11 @@ def run_torch(graph, inputs: dict, *, fuse: bool = True, keep_grads: bool = True
     return out
 
 
-def _walk(graph, j, plan, segments, *, keep_grads):
+def _identity(g):
+    return g
+
+
+def _walk(graph, j, plan, segments, *, keep_grads, grad_reduce=None, batch=None):
     """The segment walk: region kernels and per-node steps.
 
     The unfused walk (``_graph_step_local`` in the JAX executor) is this
@@ -503,11 +564,18 @@ def _walk(graph, j, plan, segments, *, keep_grads):
     gradients live in ``env`` keyed by edge name (the gradient of edge
     ``e`` is ``d_<e>``), so regions and per-node steps compose in any
     interleaving the fusion plan produced.
+
+    ``batch`` is the images the arrays carry (default the graph's): a mesh
+    shard walks its slice, its regions resized to it while the loss keeps
+    the global batch's 1/B. ``grad_reduce`` runs on every ``d_<param>`` as
+    it is produced, before the SGD update reads it, so no region of the walk
+    may hold an update (a plan with ``fuse_updates=False``).
     """
     nodes = {n.name: n for n in graph.nodes}
     env = {graph.input_edge: j[graph.input_edge]}
     outs: dict = {}
-    B = graph.batch
+    B = graph.batch if batch is None else batch
+    reduce = grad_reduce or _identity
 
     def add_grad(edge, v):
         key = f"d_{edge}"
@@ -568,6 +636,7 @@ def _walk(graph, j, plan, segments, *, keep_grads):
                 dw = plan(s, "dw")({"dy": g.reshape(-1, s.seq, s.d)})["dw"]
             else:
                 raise TypeError(f"no dW route for {type(s).__name__}")
+            dw = reduce(dw)
             env[f"d_{node.param}"] = dw
             if keep_grads:
                 outs[f"d_{node.param}"] = dw
@@ -615,6 +684,11 @@ def _walk(graph, j, plan, segments, *, keep_grads):
             exec_step(seg.step)
             continue
         region = seg.region
+        if grad_reduce is not None and any(st.pass_ == "upd" for st in region.stages):
+            raise ValueError(f"{region.label}: a region with an update cannot take a "
+                             "gradient reduce; plan with fuse_updates=False")
+        if region.batch != B:
+            region = dataclasses.replace(region, batch=B)
         ins = {name: env[name] if name in env else j[name] for name, _ in region.inputs}
         ro = plan(region, "region")(ins)
         for name, kind in region.outputs:
@@ -622,6 +696,7 @@ def _walk(graph, j, plan, segments, *, keep_grads):
             if kind == "batched":
                 env[name] = v
             elif name.startswith("d_"):
+                v = reduce(v)
                 env[name] = v
                 if keep_grads:
                     outs[name] = v

@@ -1254,7 +1254,7 @@ def train_graph(
             writer.close()
     fusion = None
     if backend == "torch" and fuse:
-        fusion = (executors._fusion_for(program) if program is not None
+        fusion = (executors.step_fusion(program) if program is not None
                   else cache.fusion_plan(graph))
     return {"params": params_to_numpy(params), "losses": losses, "walls": walls,
             "first_outputs": first, "program": program, "fusion": fusion,

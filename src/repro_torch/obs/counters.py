@@ -1,7 +1,6 @@
 """Hierarchical performance counters for the NTX stack.
 
-Counterpart of ``repro/obs/counters.py`` without the mesh's link counters
-(``record_link_schedule``), which wait for the port of the mesh executor.
+Counterpart of ``repro/obs/counters.py``.
 
 A :class:`CounterRegistry` is a flat dict of ``scope/leaf -> number`` with a
 stack of scope prefixes, so recording under ``with reg.scope("step0", "c1",
@@ -19,6 +18,9 @@ Leaf names recorded by the stock instrumentation:
   ``offloads, staging_offloads, commands, busy_cycles, macs, dma_bytes,
   spill_bytes, fill_bytes`` (per program, via :func:`record_program`);
   ``timing/*_cycles`` (via :func:`record_schedule`);
+  ``mesh/<pass>/link_transfers|link_hops|link_bytes`` and
+  ``mesh/link_congestion_s`` (via :func:`record_link_schedule`);
+  ``shard/*`` and ``reshard/*`` (the mesh splitter);
   ``plan_cache/hits|misses|calls`` and ``fusion/regions|fallback_dispatches|
   fused_commands|unfused_commands`` (the torch executor).
 
@@ -267,3 +269,25 @@ def record_schedule(reg: CounterRegistry, result) -> None:
         reg.inc("dma_stall_cycles", s["dma_stall_cycles"])
         reg.inc("queue_stall_cycles", s["queue_stall_cycles"])
         reg.inc("overhead_cycles", s["overhead_cycles"])
+
+
+def record_link_schedule(reg: CounterRegistry, schedule) -> None:
+    """Book a :class:`~repro_torch.runtime.mesh.LinkSchedule`'s traffic
+    under ``mesh/<pass>/``.
+
+    One scheduled transfer = one hop on one directed link, so
+    ``link_hops`` counts transfers and ``link_bytes`` sums their payloads;
+    scoping by the transfer tag's head (``reduce_v``, ``bcast_h``,
+    ``ring``, ...) makes per-pass link traffic rankable in the hotspot
+    table while totals stay the whole schedule's.
+    """
+    if reg is None or not reg.enabled:
+        return
+    with reg.scope("mesh"):
+        for st in schedule.transfers:
+            head = (st.transfer.tag or "link").split(":")[0]
+            with reg.scope(head):
+                reg.inc("link_transfers", 1)
+                reg.inc("link_hops", 1)
+                reg.inc("link_bytes", st.transfer.num_bytes)
+        reg.inc("link_congestion_s", schedule.congestion_time)

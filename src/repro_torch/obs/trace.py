@@ -1,8 +1,8 @@
-"""Merged Perfetto traces: cluster lanes + host spans.
+"""Merged Perfetto traces: cluster lanes + link lanes + host spans.
 
-Counterpart of ``repro/obs/trace.py`` without the mesh's lanes
-(``add_link_lanes``, ``add_mesh_step``, ``add_recovery``), which wait for
-the port of the mesh executor. :class:`repro_torch.runtime.scheduler.Timeline`
+Counterpart of ``repro/obs/trace.py`` without the fault lanes
+(``add_recovery``), which wait for the port of the fault model.
+:class:`repro_torch.runtime.scheduler.Timeline`
 exports per-command cluster lanes; this module widens the picture to the
 whole step in ONE chrome-trace JSON that Perfetto (https://ui.perfetto.dev)
 or ``chrome://tracing`` loads directly:
@@ -12,13 +12,18 @@ or ``chrome://tracing`` loads directly:
     records by replaying the scheduler's round-robin deal
     (:func:`block_spans`), so every span carries its lowering tag
     (``c1:fwd``, ``spill:act1``, ...).
+  * **mesh link lanes** (``pid mesh``) — one track per directed link of
+    the HMC mesh, spans from a :class:`~repro_torch.runtime.mesh.LinkSchedule`
+    (:meth:`TraceCollector.add_link_lanes`; :meth:`TraceCollector.add_mesh_step`
+    renders a sharded step's lead cube and its weight exchange).
   * **host lanes** (``pid host``) — wall-clock spans for graph lowering
     (``lower:{node}:{pass}``) and the torch executor's plan calls, recorded
     live via :meth:`TraceCollector.host_span`. A plan-call span ends when
     the call returns, without a device synchronise: it times the host's
     dispatch of the kernels, not their run on the card.
   * **flow events** (``ph s/t/f``) — arrows tying a command block's host
-    lowering span to its execution span.
+    lowering span to its execution span and, for the allreduce epilogue,
+    on to the link transfer that carries it.
 
 Simulated lanes are in microseconds of modeled time (cycles / f_ntx, the
 NTX cycle model's, not a time on any chip); host lanes are microseconds of
@@ -164,6 +169,25 @@ class TraceCollector:
                 })
         return exec_events
 
+    def add_link_lanes(self, schedule, *, pid: str = "mesh") -> list[dict]:
+        """One track per directed mesh link; spans from a LinkSchedule."""
+        out = []
+        for st in schedule.transfers:
+            (a, b) = st.transfer.link
+            ev = {
+                "name": st.transfer.tag or "transfer", "cat": "link", "ph": "X",
+                "pid": pid, "tid": f"{a}->{b}",
+                "ts": st.t0 * 1e6,
+                "dur": max((st.t1 - st.t0) * 1e6, 0.001),
+                "args": {
+                    "bytes": st.transfer.num_bytes,
+                    "queued_us": st.queued * 1e6,
+                },
+            }
+            self.events.append(ev)
+            out.append(ev)
+        return out
+
     # -- flow events --------------------------------------------------------
 
     def add_flow(self, chain: list[dict], *, name: str = "flow") -> None:
@@ -191,9 +215,8 @@ class TraceCollector:
         ``{node}:{pass}`` step key; allreduce/allgather epilogue blocks are
         matched on to the first link transfer of the systolic pass that
         carries them (reduce passes for gradient reduction, broadcast
-        passes for the updated weights). The port has no mesh lanes yet, so
-        its callers pass an empty ``link_events``. Returns the number of
-        flows added.
+        passes for the updated weights). An unsharded step passes an empty
+        ``link_events``. Returns the number of flows added.
         """
         host_by_key = {}
         for ev in self.events:
@@ -235,6 +258,49 @@ class TraceCollector:
             self.add_flow(chain, name=tag.split("[")[0] or "flow")
             n_flows += self._flow_id - before
         return n_flows
+
+    # -- one-call mesh-step merge -------------------------------------------
+
+    def add_mesh_step(self, sharded, *, n_clusters: int = 16,
+                      engine: str | None = None):
+        """Time the lead cube's shard + the link exchange; add all lanes + flows.
+
+        ``sharded`` is a :class:`repro_torch.lower.mesh.ShardedTrainStep`.
+        Uses the event engine when the shard fits under the block-engine
+        threshold (complete per-command records -> complete block spans);
+        above it the block engine's record cap trims the rendered tail.
+        Returns ``(ScheduleResult, LinkSchedule)``.
+        """
+        from repro_torch.runtime import scheduler as rt_sched
+        from repro_torch.runtime.mesh import LinkSchedule, MeshInterconnect
+
+        lead = sharded.alive_hmcs[0]
+        shard = sharded.shard_program(lead)
+        if engine is None:
+            engine = (
+                "event"
+                if shard.n_commands <= rt_sched.BLOCK_ENGINE_THRESHOLD
+                else "block"
+            )
+        sched = rt_sched.MultiClusterScheduler(
+            n_clusters=n_clusters, f_ntx=self.f_ntx
+        )
+        result = sched.schedule_program(shard, engine=engine)
+        rows, cols = sharded.mesh_shape
+        exec_events = self.add_cluster_lanes(
+            shard, result, n_clusters, pid=f"hmc{lead}"
+        )
+        if sharded.n_alive > 1:
+            # degraded meshes exchange over the hole-routing survivor ring
+            net = MeshInterconnect(rows, cols, failed=sharded.failed_hmcs)
+            upd = (net.ring_allreduce(sharded.allreduce_bytes)
+                   if sharded.failed_hmcs
+                   else net.systolic_update(sharded.allreduce_bytes))
+        else:
+            upd = LinkSchedule()
+        link_events = self.add_link_lanes(upd)
+        self.link_flows(exec_events, link_events)
+        return result, upd
 
     # -- export -------------------------------------------------------------
 

@@ -1,6 +1,7 @@
 """Offload runtime of the port: command queues, DMA streaming, multi-cluster
-scheduling — the NTX cycle model that :func:`repro_torch.lower.run_timing`
-plays a lowered program through (``repro/runtime``'s timing modules).
+scheduling and the mesh's links — the NTX cycle model that
+:func:`repro_torch.lower.run_timing` plays a lowered program through
+(``repro/runtime``'s timing modules).
 
 - :mod:`repro_torch.runtime.cmdqueue`  — per-engine command FIFOs with depth,
   back-pressure and issue/retire timestamps; one driver feeding 8 NTX; the
@@ -10,10 +11,38 @@ plays a lowered program through (``repro/runtime``'s timing modules).
 - :mod:`repro_torch.runtime.scheduler` — loop-nest partitioning across
   clusters, queue feeding, chrome-trace timelines, and the event-driven
   counterpart of the analytical model.
+- :mod:`repro_torch.runtime.mesh`      — the inter-HMC serial links (§4.9):
+  per-link transfer scheduling with congestion, the 4-pass systolic weight
+  update (eqs. 14-15), failed cubes (survivor-ring allreduce routed around
+  dead cubes), and :func:`~repro_torch.runtime.mesh.time_mesh_step` /
+  :func:`~repro_torch.runtime.mesh.time_mesh_step_2d` over sharded
+  train-step programs.
 
-Everything here is host arithmetic on integers: it takes no device and
-computes no tensor. The mesh, fault and supervisor modules of the JAX
-package are not ported yet.
+Everything here is host arithmetic: it takes no device and computes no
+tensor. The JAX package's fault and supervisor modules are not ported yet.
 """
 
-from repro_torch.runtime import cmdqueue, dma, scheduler  # noqa: F401
+from repro_torch.runtime import cmdqueue, dma, mesh, scheduler  # noqa: F401
+from repro_torch.runtime.mesh import (
+    CUBE_POWER_MESH,
+    HMC_DRAM_BYTES,
+    HOP_LATENCY,
+    LINK_BW,
+    P_LINKS,
+    LinkSchedule,
+    LinkTransfer,
+    MeshInterconnect,
+    MeshStepTiming,
+    MeshStepTiming2D,
+    ScheduledTransfer,
+    expected_update_time,
+    time_mesh_step,
+    time_mesh_step_2d,
+)
+
+__all__ = [
+    "CUBE_POWER_MESH", "HMC_DRAM_BYTES", "HOP_LATENCY", "LINK_BW", "P_LINKS",
+    "LinkSchedule", "LinkTransfer", "MeshInterconnect", "MeshStepTiming",
+    "MeshStepTiming2D", "ScheduledTransfer", "expected_update_time", "time_mesh_step",
+    "time_mesh_step_2d",
+]

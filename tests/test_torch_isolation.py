@@ -64,7 +64,9 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.runtime.dma", "repro_torch.runtime.cmdqueue",
                 "repro_torch.runtime.scheduler", "repro_torch.obs",
                 "repro_torch.obs.counters", "repro_torch.obs.report",
-                "repro_torch.obs.trace"):
+                "repro_torch.obs.trace", "repro_torch.lower.mesh",
+                "repro_torch.runtime.mesh", "repro_torch.parallel",
+                "repro_torch.parallel.sharding"):
         assert mod in res["modules"]
 
 

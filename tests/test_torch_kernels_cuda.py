@@ -214,6 +214,64 @@ def test_step_fused_matches_unfused(cuda_device):
         torch.testing.assert_close(fused_out[k], unfused[k], rtol=1e-5, atol=1e-6, msg=k)
 
 
+@pytest.mark.cuda
+def test_regions_without_update_match_plain(cuda_device):
+    """The sharded route's plan (fuse_updates=False): four regions that end
+    in dW, with the reduced d_<param> as outputs and no update epilogue, on
+    the shared-memory entry against region_torch on their own inputs."""
+    graph, inputs = _step_inputs(16, 32, cuda_device)
+    plan = plan_fusion(graph, fuse_updates=False)
+    regions = [seg.region for seg in plan.segments if seg.region is not None]
+    assert len(regions) == 4 and len(plan.fallback_steps) == 4
+    env = _as_f32(inputs, cuda_device)
+    cache = PlanCache()
+    seen = []
+
+    def plan_fn(spec, pass_):
+        p = cache.get(spec, pass_, cuda_device)
+        if pass_ != "region":
+            return p
+
+        def recorded(j):
+            out = p(j)
+            seen.append((spec, dict(j), out))
+            return out
+
+        return recorded
+
+    fused.COUNTER.reset()
+    _walk(graph, env, plan_fn, plan.segments, keep_grads=True)
+    torch.cuda.synchronize()
+    assert fused.COUNTER.entries == {fused.SMEM: 4} and fused.COUNTER.plain_calls == 0
+    for spec, ins, got in seen:
+        assert not any(st.pass_ == "upd" for st in spec.stages)
+        want = fused.region_torch(spec, ins)
+        assert any(k.startswith("d_") for k in want)
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6,
+                                       msg=f"{spec.label} {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh,shard", [("2x2", "1d"), ("2x2", "2d"), ("1x1", "1d")])
+def test_mesh_routes_match_the_unsharded_step(cuda_device, mesh, shard):
+    """A sharded program on one card: the single-device walk (2x2, 2d; one
+    region a step) and the sharded walk (1x1; four regions, four update
+    steps) against the unsharded fused step."""
+    from repro_torch.lower import shard_training_step
+
+    graph, inputs = _step_inputs(16, 32, cuda_device)
+    sharded = shard_training_step(graph, mesh_shape=mesh, shard=shard)
+    want = run_torch(graph, inputs, device=cuda_device)
+    fused.COUNTER.reset()
+    got = run_torch(sharded.program, inputs, device=cuda_device)
+    torch.cuda.synchronize()
+    assert fused.COUNTER.entries == {fused.SMEM: 4 if mesh == "1x1" else 1}
+    assert set(got) == set(want)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6, msg=k)
+
+
 # (B, H, G, S, P, N, chunk): the JAX kernel sweep's shapes, G 1, 2 and 4
 SSD_CASES = [
     (2, 4, 2, 256, 32, 32, 64),

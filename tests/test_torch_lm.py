@@ -391,11 +391,15 @@ def test_update_only_region_tables_at_the_head_size():
 # ---------------------------------------------------------------------------
 
 
-def test_run_ntx_lm_reduced_check_grads():
+def test_run_ntx_lm_reduced_check_grads(monkeypatch):
     res = run_ntx_lm("qwen1_5_0_5b", 3, 2, 8, reduced=True, device="cpu", check_grads=True)
     assert res["losses"][-1] < res["losses"][0]
     assert res["grad_err"] < 1e-4 and res["timing"].total_cycles > 0
     assert res["fusion"].n_regions == 9
+    # a mesh takes the single-device walk on one rank; two ranks wait for A6b
+    from repro_torch.lower import executors
+
+    monkeypatch.setattr(executors, "world_size", lambda: 2)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         run_ntx_lm("qwen1_5_0_5b", 1, 2, 8, mesh="1x2", device="cpu")
 
@@ -413,6 +417,6 @@ def test_cli_lm_reduced_check_grads():
     assert "gradient check vs torch.autograd: 16 params OK" in out
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--model", "qwen1_5_0_5b",
-         "--reduced", "--mesh", "1x2", "--device", "cpu"],
+         "--reduced", "--mesh", "1x2", "--chaos", "kill:hmc=1@step=1", "--device", "cpu"],
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode != 0 and "ROADMAP A6" in proc.stderr

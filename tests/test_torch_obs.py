@@ -208,7 +208,7 @@ def test_run_reference_and_run_torch_counters_on_the_cpu():
     assert reg.get("cold/plan_cache/misses") == 1 and reg.get("cold/plan_cache/calls") == 1
     assert reg.get("warm/plan_cache/misses") == 0 and reg.get("warm/plan_cache/hits") == 1
     assert "warm/plan_cache/retraces" not in reg.counters()
-    fusion = prog.meta["_fusion_plan"]
+    fusion = prog.meta["_fusion_plans"][True]
     assert reg.totals("warm/fusion/") == {
         "regions": fusion.n_regions, "fallback_dispatches": len(fusion.fallback_steps),
         "fused_commands": fusion.fused_commands,
@@ -266,7 +266,7 @@ def test_torch_backend_records_program_and_fusion_counters(tmp_path):
     res = train_graph(graph, 3, _batches(2, 8), device="cpu", registry=obs.CounterRegistry(),
                       metrics_path=str(path))
     prog, fusion = res["program"], res["fusion"]
-    assert prog is not None and fusion is prog.meta["_fusion_plan"]
+    assert prog is not None and fusion is prog.meta["_fusion_plans"][True]
     recs = obs.read_jsonl(path)
     assert len(recs) == 3
     for i, r in enumerate(recs):
@@ -333,7 +333,7 @@ def test_trace_lanes_match_jax(engine, tmp_path):
     spans = [e for e in col.events if e.get("cat") in ("fused", "dispatch")]
     assert len(spans) == cache.calls
     assert [e["name"] for e in spans if e["cat"] == "fused"] == [
-        prog.meta["_fusion_plan"].segments[0].region.label]
+        prog.meta["_fusion_plans"][True].segments[0].region.label]
     assert all(e["tid"] == "dispatch" and e["pid"] == "host" for e in spans)
     # flows: lowering span -> exec span, one per step key, as in JAX
     assert n_flows == sum(1 for e in want.events if e["ph"] == "s")
