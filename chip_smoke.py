@@ -44,6 +44,15 @@ main path, drives the main paths and checks that each went through its kernels:
   it must reject (dW doubled by the gradient hook; one shard's updates
   without the all-reduce); 2x2 ``--no-fuse`` on B2; the 2x2 program's
   11,811 commands on ``ntx_exec`` against the unsharded program's;
+* fault injection on the mesh: ``run_ntx_cnn`` with ``chaos=`` on 2x2 and
+  1x2 (a kill of cube 1 at step 2, a preemption at step 3, a straggler),
+  five steps each, held bit for bit against ``chaos="none"`` on the same
+  mesh, with the launches read per route (the 1x2 kill moves the run from
+  the single-device walk to the sharded route), the modeled recovery
+  against the JAX package's, two controls the gate must reject (the killed
+  step committed, then replayed; a stale restore without a rewind), the
+  re-sharded 2x2 stream on ``ntx_exec`` against the unsharded one, and the
+  kill run's metrics and trace;
 * ``repro_torch.models.lm.prefill`` of Mamba-2 780M at full width and
   depth (48 layers, d_model 1536, vocab 50,288) on 2 x 2,048 tokens, in
   bf16 and in fp32 (the SSD-scan kernels, 48 launches per prefill, both on
@@ -3427,6 +3436,269 @@ def mesh_path(smoke: Smoke, device):
     smoke.kernels["ntx_exec"]["mesh_route"] = report["ntx_exec 2x2 stream"]
 
 
+# Fault injection on the mesh (ROADMAP A6c): the main path's step on a 2x2
+# and a 1x2 mesh through ChaosController. Per killed mesh: the survivors and
+# the modeled recovery cycles of the JAX package's time_recovery (the NTX
+# cycle model at 1.5 GHz and the modeled links, not a time on any chip).
+CHAOS_KILL = "kill:hmc=1@step=2"
+CHAOS_RECOVERY = {"2x2": ((0, 2, 3), 930_280), "1x2": ((0,), 1_298_784)}
+CHAOS_PREEMPT = "preempt@step=3"
+CHAOS_STRAGGLE = "straggle:hmc=0,slow=4@step=1"
+
+
+def same_run(got, want) -> bool:
+    """Losses and final parameters of two train_graph results, bit for bit."""
+    import numpy as np
+
+    return got["losses"] == want["losses"] and set(got["params"]) == set(want["params"]) and all(
+        np.array_equal(got["params"][k], want["params"][k]) for k in want["params"])
+
+
+def run_units(got, want) -> float:
+    """The worst final parameter of ``got`` in units of TOL around ``want``'s."""
+    import numpy as np
+
+    return max(float((np.abs(got["params"][k].astype(np.float64) - want["params"][k])
+                      / (TOL["atol"] + TOL["rtol"] * np.abs(want["params"][k]))).max())
+               for k in want["params"])
+
+
+def chaos_path(smoke: Smoke, device):
+    """Fault injection on the mesh of HMCs on one card (ROADMAP A6c).
+
+    run_ntx_cnn at the main path's batch, image size and seeds, five steps,
+    with chaos= on a 2x2 and a 1x2 mesh, each held against chaos="none" on
+    the same mesh (the step-keyed data both take): losses and final
+    parameters bit for bit. The 2x2 kill of cube 1 at step 2 leaves three
+    cubes, which do not divide batch 64: the single-device walk all along,
+    six B1 launches for five committed steps (the discarded step and its
+    replay). The 1x2 kill leaves one cube: the walk before the kill and for
+    the discarded step, the sharded route after it (four regions that end
+    in dW and four plain updates a step). A preemption at step 3 rewinds to
+    the checkpoint in a temporary directory; a straggler is recorded. Each
+    run's launches are read per route (counts set to 0 just before the run,
+    read just after). Two controls must fail the bit gate: the killed step
+    committed and then replayed (its update lands twice), and a preemption
+    that restores the checkpoint one step older without rewinding. Then the
+    re-sharded 2x2 stream (three cubes) on ntx_exec against the unsharded
+    stream, every output bit for bit, and the kill run with --metrics /
+    --trace (the chaos counters in the JSONL, the recovery lanes in the
+    trace). Times: each run's warm step walls and the discarded step's wall
+    beside the modeled recovery.
+    """
+    import tempfile
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.kernels import fused, ntx_exec
+    from repro_torch.launch.train import run_ntx_cnn
+    from repro_torch.lower import executors, lower_training_step, run_reference
+    from repro_torch.lower.mesh import reshard_training_step
+    from repro_torch.runtime import faults
+
+    _, card = device_info()
+    log: list = []
+    orig = executors.run_torch
+
+    def logged(program, inputs, **kw):
+        plans = kw["cache"]._plans
+        upd0 = sum(p.calls for p in plans.values() if p.key[1] == "upd")
+        n0 = fused.COUNTER.launches
+        out = orig(program, inputs, **kw)
+        upd = sum(p.calls for p in plans.values() if p.key[1] == "upd") - upd0
+        log.append((executors._route_of(program), fused.COUNTER.launches - n0, upd))
+        return out
+
+    tmp = tempfile.TemporaryDirectory()
+    runs: dict = {}
+
+    def run(name, mesh, spec, controller=None, **kw):
+        """One run_ntx_cnn call; returns (result, per-route launches)."""
+        fused.COUNTER.reset()
+        log.clear()
+        executors.run_torch = logged
+        if controller is not None:
+            faults.ChaosController = controller
+        try:
+            res = run_ntx_cnn(STEPS, BATCH, IMG, device=device, mesh=mesh, chaos=spec,
+                              chaos_ckpt=f"{tmp.name}/{name}", **kw)
+        finally:
+            executors.run_torch = orig
+            faults.ChaosController = Controller
+        assert fused.COUNTER.plain_calls == 0, fused.COUNTER.plain_calls
+        assert fused.COUNTER.entries == {fused.SMEM: fused.COUNTER.launches}
+        by_route: dict = {}
+        for route, n, upd in log:
+            r = by_route.setdefault(route, {"steps": 0, "fused_region_launches": 0,
+                                            "update_dispatches": 0})
+            r["steps"] += 1
+            r["fused_region_launches"] += n
+            r["update_dispatches"] += upd
+        walls = res["walls"][1:]
+        warm = sum(walls) / len(walls) * 1e3
+        print(f"  {name} ({mesh}, {spec!r}): routes {by_route}; losses "
+              f"{[round(x, 5) for x in res['losses']]}; warm step wall {warm:.3f} ms on {card}")
+        runs[name] = {"mesh": mesh, "chaos": spec, "by_route": by_route, "warm_wall_ms": warm,
+                      "walls_ms": [w * 1e3 for w in res["walls"]]}
+        return res, by_route
+
+    Controller = faults.ChaosController
+    healthy = {}
+    for mesh in ("2x2", "1x2"):
+        healthy[mesh], by_route = run(f"{mesh} none", mesh, "none")
+        assert by_route == {"walk": {"steps": STEPS, "fused_region_launches": STEPS,
+                                     "update_dispatches": 0}}, by_route
+        assert healthy[mesh]["chaos"]["events"] == []
+    assert same_run(healthy["1x2"], healthy["2x2"]), "the walk of 1x2 and 2x2 differ"
+
+    # kills: the survivors, the modeled recovery, the routes, the healthy bits
+    kills = {}
+    for mesh in ("2x2", "1x2"):
+        res, by_route = run(f"{mesh} kill", mesh, CHAOS_KILL)
+        ctl, rep = res["controller"], res["chaos"]
+        alive, cycles = CHAOS_RECOVERY[mesh]
+        rec = ctl.recoveries[0].summary()
+        (d,) = res["discarded"]
+        print(f"  {mesh} kill: survivors {ctl.sharded.alive_hmcs}, report {rep}; discarded "
+              f"step {d['step']}: {d['wall_s'] * 1e3:.3f} ms run, {d['handling_s'] * 1e3:.1f} "
+              f"ms handling (re-shard and recovery model on the host); modeled recovery "
+              f"{rec['t_total_ms']:.6f} ms = {rec['recovery_cycles']} NTX cycles (detect "
+              f"{rec['t_detect_ms']:.6f}, restore {rec['t_restore_ms']:.6f}, replay "
+              f"{rec['t_replay_ms']:.6f}; NTX cycle model, not a chip)")
+        assert ctl.sharded.alive_hmcs == alive, ctl.sharded.alive_hmcs
+        assert (rep["remesh_events"], rep["recovery_cycles"], rep["alive_hmcs"]) == (
+            1, cycles, len(alive)), rep
+        assert d["step"] == 2, d
+        if mesh == "2x2":
+            assert by_route == {"walk": {"steps": STEPS + 1, "fused_region_launches": STEPS + 1,
+                                         "update_dispatches": 0}}, by_route
+        else:
+            assert by_route == {
+                "walk": {"steps": 3, "fused_region_launches": 3, "update_dispatches": 0},
+                "sharded": {"steps": 3, "fused_region_launches": 12, "update_dispatches": 12},
+            }, by_route
+        bits = same_run(res, healthy[mesh])
+        print(f"  {mesh} kill vs {mesh} none: losses and final parameters bit-identical {bits}")
+        assert bits
+        # where the handling goes: the re-shard, then the recovery model
+        t0 = time.perf_counter()
+        degraded = reshard_training_step(res["sharded"], 1)
+        t1 = time.perf_counter()
+        faults.time_recovery(res["sharded"], degraded, n_clusters=16)
+        split = {"reshard_ms": (t1 - t0) * 1e3, "time_recovery_ms": (time.perf_counter() - t1)
+                 * 1e3}
+        print(f"  {mesh} kill handling, timed again on the host: re-shard "
+              f"{split['reshard_ms']:.1f} ms, time_recovery {split['time_recovery_ms']:.1f} ms")
+        kills[mesh] = res
+        runs[f"{mesh} kill"].update(
+            survivors=list(alive), recovery=rec, discarded_wall_ms=d["wall_s"] * 1e3,
+            handling_ms=d["handling_s"] * 1e3, handling_split=split, bits_equal=bits)
+
+    # preemption and straggler on 2x2
+    res, by_route = run("2x2 preempt", "2x2", CHAOS_PREEMPT)
+    rep = res["chaos"]
+    assert rep["preemptions"] == 1 and rep["events"] == [
+        "preempt:job@step3", "preempt@step3: restored step 3"], rep
+    assert [d["step"] for d in res["discarded"]] == [3], res["discarded"]
+    assert by_route["walk"]["fused_region_launches"] == STEPS + 1, by_route
+    bits = same_run(res, healthy["2x2"])
+    runs["2x2 preempt"].update(bits_equal=bits, discarded_wall_ms=res["discarded"][0]["wall_s"]
+                               * 1e3, handling_ms=res["discarded"][0]["handling_s"] * 1e3)
+    print(f"  2x2 preempt: {rep['events']}; discarded step 3 "
+          f"{runs['2x2 preempt']['discarded_wall_ms']:.3f} ms run, "
+          f"{runs['2x2 preempt']['handling_ms']:.1f} ms restoring; bit-identical {bits}")
+    assert bits
+    res, by_route = run("2x2 straggle", "2x2", CHAOS_STRAGGLE)
+    rep = res["chaos"]
+    assert (rep["straggler_events"], rep["alive_hmcs"], res["discarded"]) == (1, 4, []), rep
+    assert by_route["walk"]["fused_region_launches"] == STEPS, by_route
+    bits = same_run(res, healthy["2x2"])
+    runs["2x2 straggle"]["bits_equal"] = bits
+    print(f"  2x2 straggle: {rep['events']}; bit-identical {bits}")
+    assert bits
+
+    # controls: each must fail the bit gate
+    class CommitThenReplay(Controller):
+        """The killed step's outputs committed, then the step replayed."""
+
+        def intercept(self, step, outs, params):
+            action = super().intercept(step, outs, params)
+            if action is not None:
+                action.params = {k: outs[f"{k}_new"] for k in params}
+            return action
+
+    class StaleRestore(Controller):
+        """The checkpoint one step older restored, without rewinding."""
+
+        def _handle_preempt(self, step, params):
+            action = super()._handle_preempt(step, params)
+            state, _ = ckpt.restore(self.ckpt_dir, params, step=action.resume_step - 1)
+            return faults.ChaosAction(resume_step=step, params=state)
+
+    controls = {}
+    for name, controller, spec in (("killed step committed, then replayed", CommitThenReplay,
+                                    CHAOS_KILL),
+                                   ("preemption restoring one step older", StaleRestore,
+                                    CHAOS_PREEMPT)):
+        res, _ = run(f"control: {name}", "2x2", spec, controller)
+        bits, units = same_run(res, healthy["2x2"]), run_units(res, healthy["2x2"])
+        controls[name] = units
+        print(f"  control {name}: bit-identical {bits}, worst parameter {units:.4g} of rtol "
+              f"{TOL['rtol']} / atol {TOL['atol']} -> {'passes' if bits else 'rejected'}")
+        assert not bits, f"the chaos gate let the control through: {name}"
+
+    # the re-sharded 2x2 stream (three cubes) on ntx_exec, beside the unsharded one
+    graph, inputs = main_path_graph_inputs(device)
+    degraded = kills["2x2"]["controller"].sharded
+    prog = lower_training_step(graph)
+    ntx_exec.COUNTER.reset()
+    want = run_reference(prog, inputs, device=device)
+    got = run_reference(degraded.program, inputs, device=device)
+    torch.cuda.synchronize()
+    launches = (ntx_exec.COUNTER.launches, ntx_exec.COUNTER.plain_calls)
+    n_deg = degraded.program.n_commands
+    bits = set(got) == set(want) and same_bits(got, want)
+    modes = ntx_exec.program_table(degraded.program)["per_mode"]
+    print(f"  ntx_exec: the re-sharded 2x2 stream (alive {degraded.alive_hmcs}, "
+          f"{len(degraded.program.blocks)} blocks, {n_deg} commands, modes {modes}) and the "
+          f"unsharded one ({prog.n_commands}): launches / plain calls {launches}; every output "
+          f"bit-identical {bits}")
+    assert launches == (n_deg + prog.n_commands, 0), launches
+    assert bits
+    ms = time_ms(lambda: run_reference(degraded.program, inputs, device=device), iters=3,
+                 warmup=1)
+    print(f"  on {card}: the re-sharded stream on ntx_exec {ms:.3f} ms a step by events")
+
+    # --metrics / --trace on the kill run
+    metrics, trace = f"{tmp.name}/chaos.jsonl", f"{tmp.name}/chaos_trace.json"
+    res, _ = run("2x2 kill, metrics and trace", "2x2", CHAOS_KILL, metrics=metrics,
+                 trace=trace)
+    assert same_run(res, kills["2x2"]), "instrumentation changed the chaos run's bits"
+    recs = obs.read_jsonl(metrics)
+    assert [r["step"] for r in recs] == list(range(STEPS)), [r["step"] for r in recs]
+    booked = {k: v for k, v in res["registry"].counters().items() if "/chaos/" in k}
+    cycles = CHAOS_RECOVERY["2x2"][1]
+    assert booked == {"step2/chaos/remesh_events": 1,
+                      "step2/chaos/recovery_cycles": cycles}, booked
+    assert [r["counters"].get("recovery_cycles") for r in recs] == [
+        None, None, cycles, None, None], recs
+    evs = json.loads(Path(trace).read_text())["traceEvents"]
+    lanes = [(e["name"], e["tid"]) for e in evs if e["pid"] == "recovery"]
+    assert lanes == [("detect:kill:hmc1@step2", "step2"), ("restore:params", "step2"),
+                     ("replay:step2", "step2")], lanes
+    assert {"hmc0", "mesh", "host"} <= {e["pid"] for e in evs}
+    print(f"  metrics: step 2's record carries {booked}; trace: recovery lanes {lanes}")
+    tmp.cleanup()
+
+    report = {"runs": runs, "controls": controls}
+    smoke.kernels["fused_region"]["chaos_route"] = report
+    smoke.kernels["ntx_exec"]["chaos_route"] = {
+        "commands": n_deg, "alive": list(degraded.alive_hmcs), "launches_by_mode": modes,
+        "bits_equal": bits, "ms": ms}
+
+
 def main() -> int:
     import torch
 
@@ -3451,6 +3723,10 @@ def main() -> int:
             smoke.phase("mesh", mesh_path, smoke, device)
         else:
             smoke.failures.append("mesh (needs the fused region, streaming and ntx_exec phases)")
+        if {"fused_region", "ntx_exec"} <= set(smoke.kernels):
+            smoke.phase("chaos", chaos_path, smoke, device)
+        else:
+            smoke.failures.append("chaos (needs the fused region and ntx_exec phases)")
         smoke.phase("ssd_scan vs plain", check_ssd, smoke, device)
         if "ssd_scan" in smoke.kernels:
             smoke.phase("prefill path", prefill_path, smoke, device)

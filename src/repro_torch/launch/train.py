@@ -21,6 +21,13 @@ and the modeled mesh step of :func:`~repro_torch.runtime.mesh.time_mesh_step`
 (NTX cycle model and link schedule, not a time on any chip), then trains
 the sharded program.
 
+``--chaos SPEC`` injects faults into the CNN run
+(:class:`~repro_torch.runtime.faults.ChaosSchedule` grammar: a killed cube's
+step is discarded, the program re-shards onto the survivors and the step
+replays; a preemption rewinds to the latest checkpoint, kept in
+``--chaos-ckpt DIR``; a straggler is recorded) and prints every event and
+the modeled recovery.
+
 ``--metrics OUT.jsonl`` writes one JSON record per step (loss, wall
 seconds, the step's counters: the program's closed-form offload, cycle and
 DMA counts, the plan cache's and the fuser's); ``--trace OUT.json`` writes
@@ -169,7 +176,8 @@ def _trace_lanes(collector, program, sharded, n_clusters: int, trace: str) -> No
 def run_ntx_cnn(steps: int, batch: int, img: int, *, n_clusters: int = 16,
                 lr: float = 0.05, momentum: float = 0.9, fuse: bool = True,
                 device=None, mesh: str | None = None, shard: str = "1d",
-                metrics: str | None = None, trace: str | None = None) -> dict:
+                metrics: str | None = None, trace: str | None = None,
+                chaos: str | None = None, chaos_ckpt: str | None = None) -> dict:
     """Train the paper CNN for ``steps`` steps; print the per-step losses.
 
     ``n_clusters`` sizes the program's TCDM budget and the timing model.
@@ -184,6 +192,19 @@ def run_ntx_cnn(steps: int, batch: int, img: int, *, n_clusters: int = 16,
     cache (``"cache"``) and, with a mesh, the
     :class:`~repro_torch.lower.mesh.ShardedTrainStep` (``"sharded"``), its
     route (``"route"``) and modeled timing (``"mesh_timing"``).
+
+    ``chaos`` injects faults (:class:`~repro_torch.runtime.faults.ChaosSchedule`
+    grammar, e.g. ``"kill:hmc=1@step=2"``) through a
+    :class:`~repro_torch.runtime.faults.ChaosController`: a killed cube's
+    step is discarded, the program re-shards onto the survivors and the step
+    replays (the executor's route may change with it), a preemption rewinds
+    to the latest checkpoint in ``chaos_ckpt`` (default
+    ``artifacts/ntx_chaos_ckpt``, which the controller owns and wipes at the
+    start). Any chaos run, ``"none"`` included, takes step-keyed batches
+    (``batch_fn(i)`` depends on ``i`` alone), so a replayed step sees the
+    same images. The result then also holds the controller's report
+    (``"chaos"``), the controller (``"controller"``) and the discarded steps'
+    walls (``"discarded"``).
     """
     dev = resolve_device(device)
     registry = obs.CounterRegistry() if (metrics or trace) else None
@@ -205,17 +226,52 @@ def run_ntx_cnn(steps: int, batch: int, img: int, *, n_clusters: int = 16,
         if mesh is not None:
             mesh_res = _shard(graph, program, mesh, shard, n_clusters, "images")
             program = mesh_res["sharded"].program
-        batch_fn = frequency_band_batches(np.random.RandomState(0), batch, img,
-                                          graph.loss.classes)
+        chaos_ctl = None
+        if chaos is not None:
+            from repro_torch.runtime.faults import ChaosController
+
+            # chaos runs need replayable data: key every batch on the step
+            # alone so a replayed step sees bit-identical images
+            def batch_fn(i):
+                rng = np.random.RandomState(10_000 + i)
+                return frequency_band_batches(rng, batch, img, graph.loss.classes)(i)
+
+            chaos_ctl = ChaosController(
+                chaos, sharded=mesh_res.get("sharded"),
+                ckpt_dir=chaos_ckpt or "artifacts/ntx_chaos_ckpt", n_clusters=n_clusters)
+            print(f"chaos: {chaos!r} (ckpt dir {chaos_ctl.ckpt_dir}, retries "
+                  f"{chaos_ctl.retry.max_retries} @ backoff {chaos_ctl.retry.delays()})")
+        else:
+            batch_fn = frequency_band_batches(np.random.RandomState(0), batch, img,
+                                              graph.loss.classes)
         cache = PlanCache()
         res = train_graph(graph, steps, batch_fn, program=program,
                           params=graph.init_params(seed=0), fuse=fuse, device=dev,
-                          cache=cache, metrics_path=metrics)
+                          cache=cache, metrics_path=metrics, chaos=chaos_ctl)
+        sharded = mesh_res.get("sharded")
+        if chaos_ctl is not None:
+            rep = res["chaos"] = chaos_ctl.report()
+            res["controller"] = chaos_ctl
+            if chaos_ctl.sharded is not None:
+                sharded = chaos_ctl.sharded  # trace the surviving mesh
+            for line in rep["events"]:
+                print(f"chaos event: {line}")
+            print(f"chaos report: {rep['remesh_events']} re-shard(s), "
+                  f"{rep['preemptions']} preemption(s), "
+                  f"{rep['straggler_events']} straggler(s), "
+                  f"{rep['recovery_cycles']} modeled recovery cycles, "
+                  f"{rep['alive_hmcs']} cube(s) alive at exit")
+            if sharded is not None:
+                print(f"chaos: executing via the {executors.mesh_route(res['program'])} "
+                      f"route at exit")
         if collector is not None:
-            _trace_lanes(collector, program, mesh_res.get("sharded"), n_clusters, trace)
+            _trace_lanes(collector, res["program"], sharded, n_clusters, trace)
     losses = res["losses"]
     for i, (loss, w) in enumerate(zip(losses, res["walls"])):
         print(f"step {i:5d} loss={loss:.4f} ({w*1e3:.0f} ms)", flush=True)
+    for d in res.get("discarded", ()):
+        print(f"discarded step {d['step']}: {d['wall_s']*1e3:.0f} ms run, "
+              f"{d['handling_s']*1e3:.0f} ms handling the fault", flush=True)
     print(f"plan cache: {len(cache)} plans "
           f"({cache.hits} hits / {cache.misses} misses over {cache.calls} calls)")
     fusion = res["fusion"]
@@ -437,7 +493,16 @@ def _cli(argv=None):
                          "send/recv link traffic, columns tensor/data-shard each "
                          "stage")
     ap.add_argument("--chaos", default=None, metavar="SPEC",
-                    help="fault injection: not ported yet (ROADMAP A6c), refused")
+                    help="CNN only: inject faults — 'kill:hmc=1@step=2', "
+                         "'straggle:hmc=0,slow=4@step=3', 'preempt@step=5' (join with "
+                         "';'), or 'random:seed=7,p_kill=0.02'. A killed cube's step is "
+                         "discarded, the program re-shards onto the survivors and the "
+                         "step replays; a preemption rewinds to the latest checkpoint. "
+                         "'none' takes the (step-keyed) chaos data path without faults: "
+                         "the healthy baseline for chaos diffs")
+    ap.add_argument("--chaos-ckpt", default=None, metavar="DIR",
+                    help="checkpoint dir the chaos controller owns (wiped at start; "
+                         "default artifacts/ntx_chaos_ckpt)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--img", type=int, default=16, help="CNN input image size")
@@ -454,9 +519,9 @@ def _cli(argv=None):
                     help="write the merged chrome trace (host spans, modeled "
                          "cluster lanes)")
     args = ap.parse_args(argv)
-    if args.chaos is not None:
-        raise SystemExit("--chaos: fault injection (ChaosController, elastic re-shard "
-                         "and replay) is not ported yet (ROADMAP A6c)")
+    if args.model is not None and args.chaos is not None:
+        raise SystemExit("--chaos is CNN-path only, as in the JAX CLI (ROADMAP A6c "
+                         "ported the CNN run's faults); drop it or drop --model")
     validate_mesh_args(args.mesh, args.shard, args.batch)
     if args.model is not None:
         res = run_ntx_lm(args.model, args.steps, args.batch, args.seq,
@@ -469,7 +534,8 @@ def _cli(argv=None):
         return
     res = run_ntx_cnn(args.steps, args.batch, args.img, n_clusters=args.n_clusters,
                       fuse=not args.no_fuse, device=args.device, mesh=args.mesh,
-                      shard=args.shard, metrics=args.metrics, trace=args.trace)
+                      shard=args.shard, metrics=args.metrics, trace=args.trace,
+                      chaos=args.chaos, chaos_ckpt=args.chaos_ckpt)
     if len(res["losses"]) >= 3 and not res["losses"][-1] < res["losses"][0]:
         raise SystemExit("ntx CNN training did not decrease the loss")
 

@@ -1164,6 +1164,7 @@ def train_graph(
     cache=None,
     registry=None,
     metrics_path=None,
+    chaos=None,
 ) -> dict[str, Any]:
     """Train ``graph`` for ``steps`` steps.
 
@@ -1188,6 +1189,18 @@ def train_graph(
     (lowered here when not given), so that it books those counts.
     ``metrics_path`` streams one JSONL record per step (step, loss, wall
     seconds, the step's counter totals).
+
+    ``chaos`` (a :class:`repro_torch.runtime.faults.ChaosController`)
+    injects faults: each executed step is intercepted BEFORE its outputs
+    commit, so a cube kill discards the step, swaps in the re-sharded
+    program and replays it, and a preemption rewinds to the latest
+    checkpoint (its parameters put back on the run's device); ``losses``
+    and ``walls`` are cut back to the step the run resumes at, and the
+    replayed step re-enters ``batch_fn(i)`` at the same ``i`` (a batch keyed
+    on the step alone makes the stream bit-identical). The result then also
+    holds ``"discarded"``: per discarded step, its index, the wall of its
+    run to a device synchronise (``wall_s``) and the controller's handling
+    of the fault after it (``handling_s``).
     """
     import torch
 
@@ -1209,13 +1222,17 @@ def train_graph(
     params = params_from_jax(params, graph, dev)
     losses: list[float] = []
     walls: list[float] = []
+    discarded: list[dict] = []
     first = None
     writer = obs_report.MetricsWriter(metrics_path) if metrics_path else None
     install = (obs_counters.use_registry(registry) if registry is not None
                else contextlib.nullcontext())
     try:
         with install:
-            for i in range(steps):
+            if chaos is not None:
+                program = chaos.start(program, params)
+            i = 0
+            while i < steps:
                 t0 = time.perf_counter()
                 x, labels = batch_fn(i)
                 inputs = {
@@ -1224,6 +1241,7 @@ def train_graph(
                         one_hot_rows(labels, graph.loss.classes), device=dev),
                     **params,
                 }
+                action = None
                 with reg.scope(f"step{i}") if reg is not None else contextlib.nullcontext():
                     if backend == "reference":
                         outs = executors.run_reference(program, inputs, device=dev)
@@ -1231,9 +1249,29 @@ def train_graph(
                         outs = executors.run_torch(
                             program if program is not None else graph, inputs,
                             fuse=fuse, device=dev, cache=cache)
+                    if chaos is not None:
+                        # the controller books the fault and its modeled
+                        # recovery in the step's own scope
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize(dev)
+                        t1 = time.perf_counter()
+                        action = chaos.intercept(i, outs, params)
+                if action is not None:
+                    # the step is discarded before it commits: swap in the
+                    # re-sharded program / the restored params and replay
+                    discarded.append({"step": i, "wall_s": t1 - t0,
+                                      "handling_s": time.perf_counter() - t1})
+                    if action.program is not None:
+                        program = action.program
+                    if action.params is not None:
+                        params = params_from_jax(action.params, graph, dev)
+                    del losses[action.resume_step:]
+                    del walls[action.resume_step:]
+                    i = action.resume_step
+                    continue
                 logits = outs[graph.logits_edge].cpu().numpy()  # synchronises
                 losses.append(softmax_xent_loss(logits, labels))
-                if first is None:
+                if i == 0:
                     first = outs
                 for p in graph.param_shapes():
                     params[p] = outs[f"{p}_new"]
@@ -1249,6 +1287,9 @@ def train_graph(
                         "wall_s": walls[-1],
                         "counters": reg.totals(f"step{i}/") if reg is not None else {},
                     })
+                if chaos is not None:
+                    chaos.committed(i, params)
+                i += 1
     finally:
         if writer is not None:
             writer.close()
@@ -1256,6 +1297,9 @@ def train_graph(
     if backend == "torch" and fuse:
         fusion = (executors.step_fusion(program) if program is not None
                   else cache.fusion_plan(graph))
-    return {"params": params_to_numpy(params), "losses": losses, "walls": walls,
-            "first_outputs": first, "program": program, "fusion": fusion,
-            "registry": reg}
+    res = {"params": params_to_numpy(params), "losses": losses, "walls": walls,
+           "first_outputs": first, "program": program, "fusion": fusion,
+           "registry": reg}
+    if chaos is not None:
+        res["discarded"] = discarded
+    return res

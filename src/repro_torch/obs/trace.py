@@ -1,7 +1,6 @@
 """Merged Perfetto traces: cluster lanes + link lanes + host spans.
 
-Counterpart of ``repro/obs/trace.py`` without the fault lanes
-(``add_recovery``), which wait for the port of the fault model.
+Counterpart of ``repro/obs/trace.py``.
 :class:`repro_torch.runtime.scheduler.Timeline`
 exports per-command cluster lanes; this module widens the picture to the
 whole step in ONE chrome-trace JSON that Perfetto (https://ui.perfetto.dev)
@@ -21,6 +20,9 @@ or ``chrome://tracing`` loads directly:
     live via :meth:`TraceCollector.host_span`. A plan-call span ends when
     the call returns, without a device synchronise: it times the host's
     dispatch of the kernels, not their run on the card.
+  * **recovery lanes** (``pid recovery``) — one track per survived cube
+    kill: detect, restore and replay spans of the modeled recovery
+    (:meth:`TraceCollector.add_recovery`, called by the chaos controller).
   * **flow events** (``ph s/t/f``) — arrows tying a command block's host
     lowering span to its execution span and, for the allreduce epilogue,
     on to the link transfer that carries it.
@@ -301,6 +303,34 @@ class TraceCollector:
         link_events = self.add_link_lanes(upd)
         self.link_flows(exec_events, link_events)
         return result, upd
+
+    def add_recovery(self, step, event, rec, degraded) -> None:
+        """Detect -> restore -> replay spans for one survived fault.
+
+        ``event`` is the :class:`repro_torch.runtime.faults.FaultEvent`,
+        ``rec`` its :class:`~repro_torch.runtime.faults.RecoveryTiming`,
+        ``degraded`` the re-sharded step. Rendered on a dedicated
+        ``recovery`` process so the cost sits next to the steady-state
+        lanes in the same trace.
+        """
+        t0 = 0.0
+        spans = (
+            (f"detect:{event.describe()}", rec.t_detect),
+            ("restore:params", rec.t_restore),
+            (f"replay:step{step}", rec.t_replay),
+        )
+        for name, dt in spans:
+            self.events.append({
+                "name": name, "cat": "recovery", "ph": "X",
+                "pid": "recovery", "tid": f"step{step}",
+                "ts": t0 * 1e6, "dur": max(dt * 1e6, 0.001),
+                "args": {
+                    "alive": degraded.n_alive,
+                    "failed": list(degraded.failed_hmcs),
+                    "recovery_cycles": rec.cycles(self.f_ntx),
+                },
+            })
+            t0 += dt
 
     # -- export -------------------------------------------------------------
 

@@ -17,12 +17,26 @@ scheduling and the mesh's links — the NTX cycle model that
   dead cubes), and :func:`~repro_torch.runtime.mesh.time_mesh_step` /
   :func:`~repro_torch.runtime.mesh.time_mesh_step_2d` over sharded
   train-step programs.
+- :mod:`repro_torch.runtime.faults`    — fault injection on the mesh: the
+  replayable :class:`~repro_torch.runtime.faults.ChaosSchedule`, bounded
+  retry, the modeled recovery cost (:func:`~repro_torch.runtime.faults.time_recovery`)
+  and the :class:`~repro_torch.runtime.faults.ChaosController` that
+  ``train_graph(chaos=)`` calls around every step.
 
-Everything here is host arithmetic: it takes no device and computes no
-tensor. The JAX package's fault and supervisor modules are not ported yet.
+Everything here but the controller is host arithmetic: it takes no device
+and computes no tensor. The JAX package's supervisor is not ported yet.
 """
 
-from repro_torch.runtime import cmdqueue, dma, mesh, scheduler  # noqa: F401
+from repro_torch.runtime import cmdqueue, dma, faults, mesh, scheduler  # noqa: F401
+from repro_torch.runtime.faults import (
+    ChaosAction,
+    ChaosController,
+    ChaosSchedule,
+    FaultEvent,
+    RecoveryTiming,
+    RetryPolicy,
+    time_recovery,
+)
 from repro_torch.runtime.mesh import (
     CUBE_POWER_MESH,
     HMC_DRAM_BYTES,
@@ -41,6 +55,8 @@ from repro_torch.runtime.mesh import (
 )
 
 __all__ = [
+    "ChaosAction", "ChaosController", "ChaosSchedule", "FaultEvent", "RecoveryTiming",
+    "RetryPolicy", "time_recovery",
     "CUBE_POWER_MESH", "HMC_DRAM_BYTES", "HOP_LATENCY", "LINK_BW", "P_LINKS",
     "LinkSchedule", "LinkTransfer", "MeshInterconnect", "MeshStepTiming",
     "MeshStepTiming2D", "ScheduledTransfer", "expected_update_time", "time_mesh_step",

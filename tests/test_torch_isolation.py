@@ -66,7 +66,8 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.obs.counters", "repro_torch.obs.report",
                 "repro_torch.obs.trace", "repro_torch.lower.mesh",
                 "repro_torch.runtime.mesh", "repro_torch.parallel",
-                "repro_torch.parallel.sharding"):
+                "repro_torch.parallel.sharding", "repro_torch.runtime.faults",
+                "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint"):
         assert mod in res["modules"]
 
 

@@ -272,6 +272,73 @@ def test_mesh_routes_match_the_unsharded_step(cuda_device, mesh, shard):
         torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6, msg=k)
 
 
+def _chaos_run(device, mesh, spec, ckpt_dir, steps=3, batch=16, img=32):
+    """train_graph on a sharded program through a ChaosController, step-keyed
+    batches; returns the result, the controller and (route, B1 launches,
+    plain update dispatches) of every executed step."""
+    from repro_torch.lower import executors, shard_training_step, train_graph
+    from repro_torch.runtime.faults import ChaosController
+
+    graph = paper_cnn_graph(batch=batch, img=img)
+    sharded = shard_training_step(graph, mesh_shape=mesh)
+    ctl = ChaosController(spec, sharded=sharded, ckpt_dir=ckpt_dir)
+    log = []
+    orig = executors.run_torch
+
+    def logged(program, inputs, **kw):
+        plans = kw["cache"]._plans
+        upd0 = sum(p.calls for p in plans.values() if p.key[1] == "upd")
+        n0 = fused.COUNTER.launches
+        out = orig(program, inputs, **kw)
+        upd = sum(p.calls for p in plans.values() if p.key[1] == "upd") - upd0
+        log.append((executors._route_of(program), fused.COUNTER.launches - n0, upd))
+        return out
+
+    def batch_fn(i):
+        return frequency_band_batches(np.random.RandomState(10_000 + i), batch, img)(i)
+
+    fused.COUNTER.reset()
+    executors.run_torch = logged
+    try:
+        res = train_graph(graph, steps, batch_fn, program=sharded.program, device=device,
+                          params=graph.init_params(seed=0), chaos=ctl)
+    finally:
+        executors.run_torch = orig
+    assert fused.COUNTER.plain_calls == 0
+    return res, ctl, log
+
+
+def _same_bits(got, want):
+    assert got["losses"] == want["losses"]
+    for k, v in want["params"].items():
+        np.testing.assert_array_equal(got["params"][k], v, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_chaos_1x2_kill_crosses_routes_with_the_healthy_bits(cuda_device, tmp_path):
+    """1x2, kill cube 1 at step 1: the walk (one region) before the kill and
+    for the discarded step, the sharded route (four regions that end in dW,
+    four plain updates) after it; the healthy run's bits."""
+    want, _, wlog = _chaos_run(cuda_device, (1, 2), "none", tmp_path / "a")
+    assert wlog == [("walk", 1, 0)] * 3
+    got, ctl, log = _chaos_run(cuda_device, (1, 2), "kill:hmc=1@step=1", tmp_path / "b")
+    assert log == [("walk", 1, 0), ("walk", 1, 0), ("sharded", 4, 4), ("sharded", 4, 4)]
+    assert ctl.sharded.alive_hmcs == (0,) and ctl.report()["remesh_events"] == 1
+    _same_bits(got, want)
+
+
+@pytest.mark.cuda
+def test_chaos_preempt_rewinds_to_the_healthy_bits(cuda_device, tmp_path):
+    """2x2, preempt at step 2: the checkpoint (copied from the card) is
+    restored onto the card and the step replays; the healthy run's bits."""
+    want, _, _ = _chaos_run(cuda_device, (2, 2), "none", tmp_path / "a")
+    got, ctl, log = _chaos_run(cuda_device, (2, 2), "preempt@step=2", tmp_path / "b")
+    assert log == [("walk", 1, 0)] * 4
+    assert ctl.report()["events"] == ["preempt:job@step2", "preempt@step2: restored step 2"]
+    assert [d["step"] for d in got["discarded"]] == [2]
+    _same_bits(got, want)
+
+
 # (B, H, G, S, P, N, chunk): the JAX kernel sweep's shapes, G 1, 2 and 4
 SSD_CASES = [
     (2, 4, 2, 256, 32, 32, 64),

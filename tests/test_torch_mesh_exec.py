@@ -11,7 +11,8 @@ the update) for one HMC on one rank, and a refusal naming ROADMAP A6b for
 two or more ranks. Both routes match the port's ``run_reference`` at JAX's
 rtol 2e-3 / atol 1e-5, and the sharded walk matches JAX's ``run_pallas``
 (Pallas in interpret mode). The driver prints the JAX driver's mesh lines
-and losses; ``--chaos`` is refused naming ROADMAP A6c.
+and losses; ``--chaos`` on the LM route is refused, as the JAX CLI refuses
+it (the CNN's chaos runs: ``tests/test_torch_faults.py``).
 
 Paper CNN at batch 4-8, img 8, on the CPU.
 """
@@ -327,7 +328,8 @@ def test_driver_refuses_two_ranks_naming_a6b(ranks):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--chaos", "kill:hmc=1@step=2", "--mesh", "2x2", "--batch", "4"], "ROADMAP A6c"),
+    (["--chaos", "kill:hmc=1@step=2", "--mesh", "2x2", "--batch", "4", "--model",
+      "qwen1_5_0_5b", "--reduced"], "ROADMAP A6c"),
     (["--mesh", "2by2"], "bad --mesh '2by2'"),
     (["--mesh", "0x2"], "is degenerate"),
     (["--mesh", "2x2", "--batch", "6"], "--batch 6 does not divide over the 2x2 mesh"),
