@@ -73,7 +73,16 @@ main path, drives the main paths and checks that each went through its kernels:
   stem kernel in both dtypes);
 * the fp32 sums too short for 3xTF32 (conv K 27, K 45, 1 x 1 x 32;
   attention with a window of 32), routed to the FFMA kernels and held by
-  the RMS gate against fp64 with the 1xTF32 control.
+  the RMS gate against fp64 with the 1xTF32 control;
+* the model-zoo trainer (phase "train_lm"):
+  ``repro_torch.launch.train.run_xla_lm`` on Qwen1.5-0.5B at full width
+  and depth (463,987,712 parameters, bf16; fp32 AdamW moments), batch 8,
+  seq 64, five steps under the Supervisor, as ``--backend xla`` builds
+  them. No hand-written kernel is on this path (blockwise attention,
+  autograd, AdamW in plain PyTorch); every kernel counter reads 0 after the
+  run. Gate A holds step 0 against fp64 (fp8 control), gate B a crash at
+  step 3 bit for bit against the uncrashed run (off-by-one restore
+  control), gate C the falling ce.
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` JSON line, and ``{"ok": true, "device": {...}}``.
@@ -3699,6 +3708,147 @@ def chaos_path(smoke: Smoke, device):
         "bits_equal": bits, "ms": ms}
 
 
+TRAIN_LM = {"arch": "qwen1_5_0_5b", "steps": 5, "batch": 8, "seq": 64, "lr": 3e-3,
+            "ckpt_every": 2, "crash_at": 3}
+
+
+def train_lm_path(device, info):
+    """The model-zoo trainer (``--backend xla``) at full width and depth:
+    Qwen1.5-0.5B (24 layers, d_model 1024, vocab 151,936; bf16 parameters,
+    fp32 AdamW moments), batch 8, seq 64, AdamW lr 3e-3, five steps under
+    the Supervisor as ``python -m repro_torch.launch.train --backend xla``
+    builds them (``run_xla_lm``). The step is blockwise attention,
+    the chunked SSD route's model code, autograd and the optimizer in plain
+    PyTorch: no hand-written kernel is on this path, and every kernel
+    counter (set to 0 just before the run) reads 0 after it.
+
+    Gate A: step 0 against the same step in fp64 on the card (the same
+    parameters cast exactly, the same batch): ce, the global gradient norm
+    and every gradient leaf's relative RMS within ``FIRST_STEP_LIMITS``;
+    the fp64 gradients rounded through float8 e4m3 at a per-tensor scale
+    (3 mantissa bits) must fail it.
+    Gate B: ``--crash-at 3 --ckpt-every 2`` ends with parameters, optimizer
+    state, step and data-iterator state bit-identical to the uncrashed run;
+    a restore whose iterator step is off by one must not. Gate C: ce at
+    step 4 below ce at step 0. Prints the warm step's time by CUDA events
+    and by device (torch.profiler), tokens/s, peak memory and the top device
+    operations, each beside the card's name and power limit.
+    """
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataIterator, InMemoryDataset
+    from repro_torch.kernels import (conv2d, flash_attention, fused, ntx_exec, ntx_matmul,
+                                     ssd_scan, streaming)
+    from repro_torch.launch import train
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.optim import get_optimizer, tree_leaves
+
+    _, smi = info
+    t = TRAIN_LM
+    cfg = get_config(t["arch"])
+    ctx = ParallelCtx(attn_backend="xla")
+    tokens = t["batch"] * t["seq"]
+    root = Path(tempfile.mkdtemp(prefix="train_lm_"))
+    print(f"train_lm: no hand-written kernel on this path (blockwise attention, "
+          f"autograd, AdamW in plain PyTorch); checkpoints in {root}, "
+          f"{shutil.disk_usage(root).free / 1e9:.1f} GB free")
+    try:
+        opt = get_optimizer("adamw", t["lr"])
+        state = train.init_train_state(0, cfg, opt, device=device)
+        n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+        ds = InMemoryDataset.synthetic(2_000_000, cfg.vocab_size, t["seq"], seed=0)
+        batch = next(DataIterator(ds, t["batch"], seed=0))  # the run's step 0 batch
+
+        # Gate A: step 0 against fp64
+        t0 = time.perf_counter()
+        r = train.first_step_readings(cfg, state["params"], batch, ctx)
+        ctl = train.first_step_readings(cfg, state["params"], batch, ctx,
+                                        control=train.fp8_rounded)
+        top_leaves = sorted(r["leaves"].items(), key=lambda kv: -kv[1])[:4]
+        print(f"gate A (step 0 vs fp64, {n_params:,} parameters, "
+              f"{time.perf_counter() - t0:.1f} s): ce {r['ce']:.6f} vs {r['ce64']:.6f} "
+              f"(rel {r['ce_rel']:.3e}), grad norm {r['grad_norm']:.6f} vs "
+              f"{r['grad_norm64']:.6f} (rel {r['grad_norm_rel']:.3e}), worst leaf "
+              f"rel RMS {r['leaf_rel_rms']:.4f} ({r['worst_leaf']}), p10 leaf "
+              f"{r['p10_leaf_rel_rms']:.4f}; limits {train.FIRST_STEP_LIMITS}; next "
+              f"{top_leaves[1:]}")
+        print(f"gate A control (fp64 grads through scaled float8 e4m3): ce rel "
+              f"{ctl['ce_rel']:.3e}, grad norm rel {ctl['grad_norm_rel']:.3e}, worst "
+              f"leaf {ctl['leaf_rel_rms']:.4f} ({ctl['worst_leaf']}), p10 leaf "
+              f"{ctl['p10_leaf_rel_rms']:.4f}")
+        assert train.first_step_passes(r), r
+        assert not train.first_step_passes(ctl), "the fp8 control passed gate A"
+
+        # the warm step: events, device time, memory, top operations
+        step = train.make_train_step(cfg, ctx, opt)
+        b = train.batch_to(batch, device)
+        ms = time_ms(lambda: step(state, b), iters=5, warmup=2)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        step(state, b)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device)
+        kern = kernel_ms(lambda: step(state, b), iters=3)
+        dev = sum(kern.values())
+        print(f"train_lm warm step [{smi}]: {ms:.3f} ms by events, {dev:.3f} ms device "
+              f"({100 * (1 - dev / ms):.1f} % idle), {tokens / ms * 1e3:,.0f} tokens/s; "
+              f"peak {peak / 1e9:.2f} GB ({resident / 1e9:.2f} GB resident: parameters "
+              f"and AdamW state)")
+        for name, k in sorted(kern.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"    {k:9.3f} ms  {name[:100]} [{smi}]")
+        del state, b, step
+        torch.cuda.empty_cache()
+
+        # the run, as the CLI builds it; Gate C
+        counters = (conv2d.COUNTER, flash_attention.COUNTER, fused.COUNTER, ntx_exec.COUNTER,
+                    ntx_matmul.COUNTER, ssd_scan.COUNTER, streaming.COUNTER)
+        for c in counters:
+            c.reset()
+        run_kw = dict(steps=t["steps"], batch=t["batch"], seq=t["seq"], lr=t["lr"],
+                      ckpt_every=t["ckpt_every"], device=device)
+        t0 = time.perf_counter()
+        ref = train.run_xla_lm(t["arch"], ckpt_dir=str(root / "a"),
+                               metrics=str(root / "m.jsonl"), **run_kw)
+        wall = time.perf_counter() - t0
+        launched = {c.name: (c.launches, c.plain_calls) for c in counters}
+        assert all(v == (0, 0) for v in launched.values()), launched
+        ce = [float(m["ce"]) for m in ref["metrics"]]
+        walls = ", ".join(f"{w * 1e3:.1f}" for w in ref["walls"])
+        print(f"train_lm run [{smi}]: {ref['report'].steps_run} steps in {wall:.1f} s "
+              f"(step walls {walls} ms, the first cold); ce {ce}; kernel launches "
+              f"{sum(v[0] for v in launched.values())}, plain calls "
+              f"{sum(v[1] for v in launched.values())}")
+        assert ce[4] < ce[0], f"gate C: ce did not fall: {ce}"
+        shutil.rmtree(root / "a", ignore_errors=True)
+
+        # Gate B: crash and restore are exact; the off-by-one restore is not
+        t0 = time.perf_counter()
+        got = train.run_xla_lm(t["arch"], ckpt_dir=str(root / "b"), crash_at=t["crash_at"],
+                               **run_kw)
+        shutil.rmtree(root / "b", ignore_errors=True)
+
+        class OffByOne(DataIterator):
+            def load_state_dict(self, st):
+                super().load_state_dict(dict(st, step=int(st["step"]) + 1))
+
+        bad = train.run_xla_lm(t["arch"], ckpt_dir=str(root / "c"), crash_at=t["crash_at"],
+                               iterator=OffByOne(ds, t["batch"], seed=0), **run_kw)
+        diff, ctl_diff = train.state_diff(got, ref), train.state_diff(bad, ref)
+        print(f"gate B (crash at {t['crash_at']}, checkpoints every {t['ckpt_every']}; "
+              f"{time.perf_counter() - t0:.1f} s): {got['report'].restarts} restart, "
+              f"{got['report'].steps_run} steps run; leaves off the uncrashed run: {diff}; "
+              f"control (iterator off by one): {ctl_diff}")
+        assert got["report"].restarts == 1 and not any(diff.values()), diff
+        assert ctl_diff["params"] > 0 and ctl_diff["iterator"], ctl_diff
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -3736,6 +3886,7 @@ def main() -> int:
         smoke.phase("ntx_matmul vs plain", check_ntx_matmul, smoke, device)
         smoke.phase("conv2d_ntx vs plain", check_conv2d, smoke, device)
         smoke.phase("C5: short fp32 sums on FFMA", check_c5, device)
+        smoke.phase("train_lm", train_lm_path, device, info)
     if len(smoke.kernels) != 7 and "kernels" not in smoke.failures:
         smoke.failures.append("kernels")
     if smoke.failures:

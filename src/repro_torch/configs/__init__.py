@@ -35,8 +35,9 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; available: {ARCHS}")
     if name not in PORTED:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP A7: its config module, and MoE or "
-            f"RG-LRU layers where it has them); ported: {PORTED}"
+            f"arch {name!r} is not ported yet (ROADMAP A7, the other archs: its config "
+            f"module, and models/moe.py or models/rglru.py where it has those "
+            f"layers); ported: {PORTED}"
         )
     return importlib.import_module(f"repro_torch.configs.{name}").CONFIG
 
@@ -50,7 +51,7 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
     """
     if cfg.n_experts or cfg.lru_width:
         raise NotImplementedError(f"reduce_config: {cfg.name} has MoE or RG-LRU layers, "
-                                  f"not ported yet (ROADMAP A7)")
+                                  f"not ported yet (ROADMAP A7: models/moe.py, models/rglru.py)")
     plen = len(cfg.pattern)
     n_layers = plen * 2 + (1 if cfg.n_layers % plen else 0)
     kv_ratio = max(1, cfg.n_heads // cfg.n_kv_heads)

@@ -103,21 +103,116 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, compensated: bool = False,
                                    out_dtype=out_dtype, compensated=compensated)
 
 
+BACKENDS = ("auto", "xla")
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32 — or left in fp64: the dtype the element-wise steps,
+    the reductions and the fp32 sums compute in. Only an fp64 model (the
+    reference of the training step's first-step gate) computes in fp64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def _mm32(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum(spec, a, b, preferred_element_type=float32)``: the
+    operands widened to fp32 (a product of two bf16 values is exact there),
+    summed in fp32. TF32 stays off (:func:`strict_fp32`)."""
+    return torch.einsum(spec, widen(a), widen(b))
+
+
+def _blockwise_attention_xla(q, k, v, *, causal: bool, window: int | None,
+                             sm_scale: float, q_offset, kv_valid_len,
+                             block_kv: int) -> torch.Tensor:
+    """Online-softmax attention scanning KV blocks; GQA grouped (no KV repeat).
+
+    ``repro/kernels/ops.py::_blockwise_attention_xla``: q, k, v and p stay
+    in the input dtype, the products sum in fp32 and only the score and
+    normalizer statistics are fp32. The last KV block is padded with zeros;
+    masked scores are ``-1e30``. Differentiable by autograd; JAX's
+    ``jax.checkpoint`` around each block only saves memory and has no
+    counterpart here.
+    """
+    bsz, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    grp = hq // hkv
+    qf = q.reshape(bsz, hkv, grp, sq, d)
+
+    block_kv = min(block_kv, skv)
+    pad = (-skv) % block_kv
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    nblk = k.shape[2] // block_kv
+    dev = q.device
+    q_ids = q_offset + torch.arange(sq, device=dev)
+    valid = skv if kv_valid_len is None else kv_valid_len
+
+    f32 = torch.promote_types(q.dtype, torch.float32)
+    m_p = torch.full((bsz, hkv, grp, sq), -torch.inf, dtype=f32, device=dev)
+    l_p = torch.zeros((bsz, hkv, grp, sq), dtype=f32, device=dev)
+    acc = torch.zeros((bsz, hkv, grp, sq, d), dtype=f32, device=dev)
+    for i in range(nblk):
+        kv0 = i * block_kv
+        kblk = k[:, :, kv0:kv0 + block_kv]
+        vblk = v[:, :, kv0:kv0 + block_kv]
+        s = _mm32("bkgqd,bkjd->bkgqj", qf, kblk) * sm_scale
+        kv_ids = kv0 + torch.arange(block_kv, device=dev)
+        mask = (kv_ids[None, :] < valid) | torch.zeros((sq, 1), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (kv_ids[None, :] <= q_ids[:, None])
+        if window is not None:
+            mask = mask & (kv_ids[None, :] > q_ids[:, None] - window)
+        s = torch.where(mask, s, -1e30)
+        m_c = s.amax(dim=-1)
+        m_n = torch.maximum(m_p, m_c)
+        # avoid NaN from (-inf) - (-inf) on fully-masked prefixes
+        safe_m = torch.where(m_n <= -1e29, 0.0, m_n)
+        p = torch.exp(s - safe_m[..., None])
+        p = torch.where(mask, p, 0.0)
+        alpha = torch.exp(torch.where(m_p <= -1e29, -torch.inf, m_p - safe_m))
+        l_p = l_p * alpha + p.sum(-1)
+        # p rounded to the value dtype before the product; the sum stays fp32
+        acc = acc * alpha[..., None] + _mm32("bkgqj,bkjd->bkgqd", p.to(vblk.dtype), vblk)
+        m_p = m_n
+    l_f = torch.where(l_p == 0.0, 1.0, l_p)
+    out = (acc / l_f[..., None]).reshape(bsz, hq, sq, d)
+    return out.to(q.dtype)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
               window: int | None = None, sm_scale: float | None = None, q_offset: int = 0,
-              kv_valid_len: int | None = None) -> torch.Tensor:
+              kv_valid_len: int | None = None, block_kv: int = 128,
+              backend: str = "auto") -> torch.Tensor:
     """Flash attention with GQA and causal / sliding-window masks
-    (``repro/kernels/ops.py::attention`` on its kernel route).
+    (``repro/kernels/ops.py::attention``).
 
     q (B, Hq, Sq, D), k / v (B, Hkv, Skv, D) -> o (B, Hq, Sq, D) in q's
-    dtype: the kernel for CUDA tensors, its plain version for CPU tensors.
-    ``sm_scale`` defaults to ``1/sqrt(D)``. As on the JAX kernel route, only
-    the full prompt is served (``q_offset == 0``, ``kv_valid_len is None``).
+    dtype. ``sm_scale`` defaults to ``1/sqrt(D)``. ``backend="auto"`` takes
+    the kernel route: the kernel for CUDA tensors, its plain version for CPU
+    tensors; as on the JAX kernel route it serves only the full prompt
+    (``q_offset == 0``, ``kv_valid_len is None``). ``backend="xla"`` takes
+    the blockwise route (:func:`_blockwise_attention_xla`, KV blocks of
+    ``block_kv``) on either device: the route the training step and
+    autograd go through, with ``q_offset`` / ``kv_valid_len``.
     """
+    _check_backend(backend)
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if backend == "xla":
+        return _blockwise_attention_xla(q, k, v, causal=causal, window=window,
+                                        sm_scale=sm_scale, q_offset=q_offset,
+                                        kv_valid_len=kv_valid_len, block_kv=block_kv)
     if q_offset != 0 or kv_valid_len is not None:
         raise NotImplementedError(
-            "attention with q_offset != 0 or kv_valid_len (the decode path, "
-            "_blockwise_attention_xla) is not ported yet (ROADMAP A7: decode / KV cache)"
+            "the flash-attention kernel serves the q_offset=0 full-cache case, as the "
+            "JAX kernel route does; take backend='xla' (the blockwise route) for "
+            "q_offset / kv_valid_len. The decode step and its KV cache are not ported "
+            "yet (ROADMAP A7: decode and serving)"
         )
     from repro_torch.kernels import flash_attention  # looked up at call time
 
@@ -125,13 +220,68 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
                                            sm_scale=sm_scale)
 
 
+def _ssd_chunked_xla(x, la, b, c, *, chunk: int, h0=None):
+    """Chunked dual-form SSD, a loop over chunks
+    (``repro/kernels/ops.py::_ssd_chunked_xla``). Everything is fp32 (fp64
+    for fp64 inputs); returns (y in x's dtype, the final state (B, H, P, N)
+    in fp32)."""
+    bb, h, s, p = x.shape
+    _, g, _, n = b.shape
+    grp = h // g
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"chunk {chunk} does not divide the sequence length {s}")
+    nc = s // chunk
+
+    xf = widen(x).reshape(bb, h, nc, chunk, p)
+    laf = widen(la).reshape(bb, h, nc, chunk)
+    bf = widen(b).reshape(bb, g, nc, chunk, n)
+    cf = widen(c).reshape(bb, g, nc, chunk, n)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+
+    hstate = h0 if h0 is not None else torch.zeros((bb, h, p, n), dtype=xf.dtype,
+                                                   device=x.device)
+    ys = []
+    for i in range(nc):
+        xc, lac, bc, cc = xf[:, :, i], laf[:, :, i], bf[:, :, i], cf[:, :, i]
+        cum = torch.cumsum(lac, dim=-1)  # (B,H,Q) inclusive
+        total = cum[..., -1]  # (B,H)
+        # intra (grouped to avoid repeating b/c across the head group)
+        cumg = cum.reshape(bb, g, grp, chunk)
+        scores = torch.einsum("bgin,bgjn->bgij", cc, bc)  # (B,G,Q,Q)
+        decay = torch.exp(cumg[..., :, None] - cumg[..., None, :])  # (B,G,grp,Q,Q)
+        decay = torch.where(causal, decay, 0.0)
+        xg = xc.reshape(bb, g, grp, chunk, p)
+        y = torch.einsum("bgij,bgkij,bgkjp->bgkip", scores, decay, xg)
+        # inter
+        hg = hstate.reshape(bb, g, grp, p, n)
+        y = y + torch.exp(cumg)[..., None] * torch.einsum("bgin,bgkpn->bgkip", cc, hg)
+        # state update
+        w = torch.exp(total.reshape(bb, g, grp)[..., None] - cumg)[..., None] * bc[:, :, None]
+        hstate = torch.exp(total)[..., None, None] * hstate + torch.einsum(
+            "bgkip,bgkin->bgkpn", xg, w
+        ).reshape(bb, h, p, n)
+        ys.append(y.reshape(bb, h, chunk, p))
+    y = torch.stack(ys, dim=2).reshape(bb, h, s, p)
+    return y.to(x.dtype), hstate
+
+
 def ssd(x: torch.Tensor, la: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
-        chunk: int = 128) -> torch.Tensor:
-    """Mamba-2 SSD scan (``repro/kernels/ops.py::ssd`` without ``return_state``).
+        chunk: int = 128, backend: str = "auto", return_state: bool = False):
+    """Mamba-2 SSD scan (``repro/kernels/ops.py::ssd``).
 
-    x (B, H, S, P), la (B, H, S), b / c (B, G, S, N) -> y (B, H, S, P):
-    the kernel for CUDA tensors, its plain version for CPU tensors.
+    x (B, H, S, P), la (B, H, S), b / c (B, G, S, N) -> y (B, H, S, P), and
+    the final state (B, H, P, N) fp32 with ``return_state=True``.
+    ``backend="auto"`` without ``return_state`` takes the kernel route: the
+    kernel for CUDA tensors, its plain version for CPU tensors.
+    ``backend="xla"`` or ``return_state`` take the chunked route
+    (:func:`_ssd_chunked_xla`) on either device, as the JAX wrapper does for
+    ``return_state``; it is the route autograd goes through.
     """
-    from repro_torch.kernels import ssd_scan  # looked up at call time
+    _check_backend(backend)
+    if backend == "auto" and not return_state:
+        from repro_torch.kernels import ssd_scan  # looked up at call time
 
-    return ssd_scan.ssd_scan(x, la, b, c, chunk=chunk)
+        return ssd_scan.ssd_scan(x, la, b, c, chunk=chunk)
+    y, h = _ssd_chunked_xla(x, la, b, c, chunk=chunk)
+    return (y, h) if return_state else y

@@ -1,4 +1,13 @@
-"""Training driver of the port: ``python -m repro_torch.launch.train --backend ntx``.
+"""Training driver of the port: ``python -m repro_torch.launch.train [--backend ntx|xla]``.
+
+``--backend xla`` is the JAX CLI's default route, the model-zoo trainer
+(``--arch``, default ``qwen1_5_0_5b``; ``--reduced``): the train-step
+factory :func:`make_train_step` (blockwise attention and chunked SSD,
+autograd, clipping, SGD or AdamW) under the fault-tolerant
+:class:`~repro_torch.runtime.supervisor.Supervisor` (``--ckpt-dir``,
+``--ckpt-every``, ``--crash-at``), fed by the in-memory
+:class:`~repro_torch.data.pipeline.DataIterator`; ``--offload-report``
+prints :func:`offload_step_report`. The port's default stays ``ntx``.
 
 Counterpart of ``repro/launch/train.py``'s ``run_ntx_cnn``, ``run_ntx_lm``
 and the ntx branch of its CLI: lower the paper's small CNN — or, with
@@ -42,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import math
 
 import numpy as np
 
@@ -70,6 +80,17 @@ from repro_torch.lower import (
 )
 from repro_torch.lower import executors
 from repro_torch.lower.mesh import parse_mesh, shard_training_step
+from repro_torch.models import lm
+from repro_torch.models.blocks import param_pytree
+from repro_torch.optim.optimizers import (
+    apply_updates,
+    clip_by_global_norm,
+    get_optimizer,
+    global_norm,
+    tree_items,
+    tree_leaves,
+    tree_map,
+)
 from repro_torch.runtime.mesh import time_mesh_step
 
 #: the CLI's learning rate for --model (the JAX CLI's --lr default)
@@ -462,22 +483,424 @@ def run_ntx_lm(model: str, steps: int, batch: int, seq: int, *, n_clusters: int 
     return res
 
 
+# ---------------------------------------------------------------------------
+# The model-zoo trainer (``--backend xla``): ``repro/launch/train.py``'s
+# train-step factory, offload report and CLI route. The step runs the
+# blockwise attention and chunked SSD routes (``ParallelCtx(attn_backend=
+# "xla")``) and autograd; no hand-written kernel is on this path.
+# ---------------------------------------------------------------------------
+
+
+def init_train_state(seed: int, cfg, optimizer, grad_sync: str = "auto", mesh=None,
+                     dp_axes: tuple[str, ...] = (), device=None) -> dict:
+    """``{"params", "opt", "step"}`` (plus ``"err"`` for ``grad_sync="compressed"``).
+
+    Parameters are :func:`~repro_torch.models.lm.init_lm`'s, drawn from
+    ``seed`` on ``device`` (CUDA unless ``"cpu"``), as a pytree
+    (:func:`~repro_torch.models.blocks.param_pytree`); ``step`` is an int32
+    tensor.
+    """
+    params = param_pytree(lm.init_lm(cfg, seed=seed, device=device))
+    dev = tree_leaves(params)[0].device
+    state = {"params": params, "opt": optimizer.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if grad_sync == "compressed":
+        dp = math.prod(mesh.shape[a] for a in dp_axes) if mesh is not None and dp_axes else 1
+        state["err"] = tree_map(
+            lambda p: torch.zeros((dp,) + tuple(p.shape), dtype=torch.float32, device=p.device),
+            params)
+    return state
+
+
+def _value_and_grad(params, batch, cfg, ctx):
+    """(grads in the parameters' dtypes, metrics) of ``lm_loss`` by autograd;
+    a parameter the loss does not reach gets zeros."""
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    leaves = tree_leaves(p)
+    loss, metrics = lm.lm_loss(p, batch, cfg, ctx)
+    got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    by_id = {id(t): (torch.zeros_like(t) if g is None else g) for t, g in zip(leaves, got)}
+    grads = tree_map(lambda t: by_id[id(t)], p)
+    return grads, {k: v.detach() for k, v in metrics.items()}
+
+
+def _grads_and_metrics(params, batch, cfg, ctx, num_microbatches: int):
+    """Gradients and the loss metrics of one batch.
+
+    With ``num_microbatches`` > 1 the batch is split along its first axis;
+    the microbatches' gradients are summed in fp32, divided by their number
+    and cast to the parameter dtype; the metrics are the last
+    microbatch's, as in the JAX scan.
+    """
+    if num_microbatches <= 1:
+        return _value_and_grad(params, batch, cfg, ctx)
+    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                   params)
+
+    def mb_slice(x, i):
+        mb = x.shape[0] // num_microbatches
+        return x[i * mb:(i + 1) * mb]
+
+    metrics = None
+    for i in range(num_microbatches):
+        g, metrics = _value_and_grad(params, {k: mb_slice(v, i) for k, v in batch.items()},
+                                     cfg, ctx)
+        acc = tree_map(lambda a, b: a + b.float(), acc, g)
+    grads = tree_map(lambda g, p: (g / num_microbatches).to(p.dtype), acc, params)
+    return grads, metrics
+
+
+def batch_to(batch: dict, device) -> dict:
+    """A batch of numpy arrays or tensors as tensors on ``device``."""
+    return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
+            .to(device) for k, v in batch.items()}
+
+
+def make_train_step(cfg, ctx, optimizer, *, grad_sync: str = "auto",
+                    num_microbatches: int = 1, clip_norm: float | None = 1.0):
+    """``train_step(state, batch) -> (new_state, metrics)``: gradients by
+    autograd, clipping by global norm (``grad_norm`` in the metrics), the
+    optimizer update, ``step + 1``. The state's tensors are not changed in
+    place.
+
+    This is the JAX factory's one-device branch, which it takes for every
+    ``grad_sync`` when there is no mesh. A mesh with data-parallel axes
+    (the systolic and compressed gradient exchange) is refused.
+    """
+    mesh, dp_axes = ctx.mesh, ctx.dp_axes
+    if not (grad_sync == "auto" or mesh is None or not dp_axes):
+        raise NotImplementedError(
+            f"grad_sync={grad_sync!r} on a mesh with data-parallel axes {dp_axes} "
+            "(core/systolic.py, optim/compression.py) is not ported yet (ROADMAP A6b)"
+        )
+
+    def train_step(state, batch):
+        params = state["params"]
+        batch = batch_to(batch, tree_leaves(params)[0].device)
+        grads, metrics = _grads_and_metrics(params, batch, cfg, ctx, num_microbatches)
+        if clip_norm is not None:
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            metrics = dict(metrics, grad_norm=gnorm)
+        updates, opt = optimizer.update(grads, state["opt"], params)
+        new_state = dict(state, params=apply_updates(params, updates), opt=opt,
+                         step=state["step"] + 1)
+        return new_state, metrics
+
+    return train_step
+
+
+def offload_step_report(cfg, seq: int, batch: int, *, n_clusters: int = 16,
+                        queue_depth: int = 4, f_ntx: float = 1.5e9) -> dict:
+    """Map one training step onto the NTX offload runtime (modeled; host
+    arithmetic, ``repro/launch/train.py::offload_step_report``).
+
+    MACs come from the analytic flop counts, DMA bytes from the HBM-traffic
+    model at fp32 stream width; the cycle estimate runs the double-buffered
+    runtime of :mod:`repro_torch.runtime.scheduler`. The per-layer block
+    lowers the step's GEMMs through :func:`~repro_torch.lower.lower_layer` —
+    forward plus both training passes (dW, dX) — and times them on the NTX
+    and NS designs; the queue-level block maps the dominant forward GEMM
+    onto per-cluster command streams, queued against synchronous offload.
+    """
+    from repro_torch.lower import NS_DESIGN, lower_layer
+    from repro_torch.models import flops
+    from repro_torch.runtime import scheduler as rt_sched
+
+    macs = flops.train_step_flops(cfg, seq, batch) / 2.0
+    dma_bytes = flops.train_hbm_bytes_per_chip(cfg, seq, batch, tp=1, dp=1, dtype_bytes=4)
+    est = rt_sched.simulate_workload(macs, dma_bytes, n_clusters=n_clusters, f_ntx=f_ntx)
+
+    tokens = seq * batch
+    d_ff = cfg.d_ff or getattr(cfg, "moe_d_ff", 0) or 4 * cfg.d_model
+    layer_specs = {
+        "attn_qkvo": MatmulSpec(tokens, 4 * cfg.d_model, cfg.d_model),
+        "ffn_in": MatmulSpec(tokens, d_ff, cfg.d_model),
+        "ffn_out": MatmulSpec(tokens, cfg.d_model, d_ff),
+    }
+    layers = {}
+    layer_progs = {}
+    for lname, spec in layer_specs.items():
+        progs = layer_progs[lname] = lower_layer(spec)
+        # the NS design re-issues one command per output element, which only
+        # the block engine can time; split the coarse NTX programs over the
+        # clusters first (§3.1)
+        timed = {}
+        for design, prs in (("ntx", progs), ("ns", lower_layer(spec, design=NS_DESIGN))):
+            total = 0
+            for pr in prs.values():
+                want = n_clusters * rt_sched.ENGINES_PER_CLUSTER * queue_depth
+                if pr.n_commands < want:
+                    pr = rt_sched.partition_program(pr, -(-want // pr.n_commands))
+                total += run_timing(pr, n_clusters=n_clusters, f_ntx=f_ntx,
+                                    engine="block").total_cycles
+            timed[design] = total
+        layers[lname] = {
+            "offloads": {p: pr.n_offloads for p, pr in progs.items()},
+            "busy_cycles": {p: pr.busy_cycles for p, pr in progs.items()},
+            "fwd_bwd_offloads": sum(pr.n_offloads for pr in progs.values()),
+            "fwd_bwd_cycles_timed": timed["ntx"],
+            "fwd_bwd_cycles_timed_ns": timed["ns"],
+            "ns_over_ntx_cycles": timed["ns"] / max(timed["ntx"], 1),
+        }
+
+    # queue-level view of the dominant GEMM: (tokens x d_ff x d_model)
+    gemm = layer_progs["ffn_in"]["fwd"].blocks[0].template
+    parts = rt_sched.partition_command(
+        gemm, n_clusters * rt_sched.ENGINES_PER_CLUSTER * queue_depth)
+    tile_bytes = [(p.loops[2] * p.loops[0] + p.loops[0] * p.loops[1]) * 4 for p in parts]
+    sched = rt_sched.MultiClusterScheduler(
+        n_clusters=n_clusters, cluster=rt_sched.ClusterConfig(queue_depth=queue_depth),
+        f_ntx=f_ntx)
+    queued = sched.schedule(parts, bytes_per_command=tile_bytes)
+    sync_sched = rt_sched.MultiClusterScheduler(
+        n_clusters=n_clusters, cluster=rt_sched.ClusterConfig(sync=True), f_ntx=f_ntx)
+    synced = sync_sched.schedule(parts, bytes_per_command=tile_bytes)
+    return {
+        "macs_per_step": macs,
+        "dma_bytes_per_step": dma_bytes,
+        "cycles_per_step": est.cycles,
+        "step_time_s": est.time,
+        "overlap_efficiency": est.overlap_efficiency,
+        "layers": layers,
+        "gemm_offloads": queued.summary()["n_commands"],
+        "gemm_cycles_queued": queued.total_cycles,
+        "gemm_cycles_sync": synced.total_cycles,
+        "gemm_queued_speedup": synced.total_cycles / max(queued.total_cycles, 1),
+        "gemm_utilization": queued.utilization,
+    }
+
+
+# -- the first-step gate: step 0 against the same step in fp64 ---------------
+
+#: the first-step gate's limits: the bf16 step against the same step in
+#: fp64. ``p10_leaf_rel_rms`` is the tenth percentile of the leaves'
+#: relative RMS, over the leaves of at least ``P10_MIN_NUMEL`` elements: a
+#: gradient rounded to 3 mantissa bits (:func:`fp8_rounded`) reads about
+#: 0.026 in every such leaf, while the bf16 step's error varies from leaf
+#: to leaf. The reduced configs read, in bf16 on the CPU
+#: (tests/test_torch_train_lm.py; Qwen / Mamba-2): ce 5.2e-5 / 1.2e-5, grad
+#: norm 5.4e-5 / 3.7e-4, worst leaf 0.019 / 0.036 and p10 0.0130 / 0.0117;
+#: the control's p10 reads 0.0258 / 0.0256. The limits keep a margin of
+#: 1.9x-8.4x, 27x-186x, 2.8x-5.2x and 1.54x-1.71x over the bf16 readings,
+#: and the p10 limit sits 1.28x under the control's smaller reading.
+FIRST_STEP_LIMITS = {"ce_rel": 1e-4, "grad_norm_rel": 1e-2, "leaf_rel_rms": 0.1,
+                     "p10_leaf_rel_rms": 0.02}
+P10_MIN_NUMEL = 1024
+
+
+def fp8_rounded(g: torch.Tensor) -> torch.Tensor:
+    """The first-step gate's control: ``g`` rounded through float8 e4m3 at a
+    per-tensor scale (max|g| to 448, the format's largest value) and back:
+    a gradient that carries 3 mantissa bits."""
+    amax = g.abs().max()
+    scale = torch.where(amax > 0, 448.0 / amax, torch.ones_like(amax))
+    return (g * scale).to(torch.float8_e4m3fn).to(g.dtype) / scale
+
+
+def leaf_rel_rms(got: dict, want: dict) -> dict:
+    """Per leaf of two params-shaped pytrees, ``||got - want|| / ||want||``
+    in fp64, keyed by the leaf's name; leaves where ``want`` is zero are
+    skipped."""
+    out = {}
+    for (n, w), g in zip(tree_items(want), tree_leaves(got)):
+        den = float(torch.linalg.vector_norm(w.double()))
+        if den > 0:
+            out[n] = float(torch.linalg.vector_norm(g.double() - w.double())) / den
+    return out
+
+
+def first_step_readings(cfg, params, batch, ctx, *, control=None) -> dict:
+    """Step 0's ``ce``, global gradient norm and every gradient leaf against
+    the same step computed in fp64 from the same parameters (cast exactly)
+    and batch: relative errors of ``ce`` and the norm, per leaf the
+    relative RMS (:func:`leaf_rel_rms`), its worst leaf and its tenth
+    percentile over the leaves of at least ``P10_MIN_NUMEL`` elements.
+    ``control(g64)``, when given, replaces the step's gradients by a
+    function of the fp64 ones (a control the gate must reject). Returns the
+    readings and the worst leaf's name."""
+    batch = batch_to(batch, tree_leaves(params)[0].device)
+    grads, metrics = _grads_and_metrics(params, batch, cfg, ctx, 1)
+    p64 = tree_map(lambda p: p.double(), params)
+    g64, m64 = _grads_and_metrics(p64, batch, cfg.with_(dtype=torch.float64), ctx, 1)
+    if control is not None:
+        grads = tree_map(control, g64)
+    leaf = leaf_rel_rms(grads, g64)
+    numel = {n: w.numel() for n, w in tree_items(g64)}
+    big = sorted(v for n, v in leaf.items() if numel[n] >= P10_MIN_NUMEL)
+    gn, gn64 = float(global_norm(grads)), float(global_norm(g64))
+    worst = max(leaf, key=leaf.get)
+    return {"ce": float(metrics["ce"]), "ce64": float(m64["ce"]),
+            "ce_rel": abs(float(metrics["ce"]) - float(m64["ce"])) / abs(float(m64["ce"])),
+            "grad_norm": gn, "grad_norm64": gn64, "grad_norm_rel": abs(gn - gn64) / gn64,
+            "leaf_rel_rms": leaf[worst], "worst_leaf": worst,
+            "p10_leaf_rel_rms": big[int(0.1 * (len(big) - 1))], "leaves": leaf}
+
+
+def first_step_passes(readings: dict) -> bool:
+    return all(readings[k] <= lim for k, lim in FIRST_STEP_LIMITS.items())
+
+
+def state_diff(a: dict, b: dict) -> dict:
+    """How two :func:`run_xla_lm` results' final states differ: the number
+    of parameter and optimizer-state leaves that are not bit-identical (a
+    dtype or shape differing counts), whether the step counters differ, and
+    whether the data iterators' states differ."""
+    def leaves_off(x, y) -> int:
+        lx, ly = tree_leaves(x), tree_leaves(y)
+        if len(lx) != len(ly):
+            return max(len(lx), len(ly))
+        return sum(not (u.dtype == v.dtype and u.shape == v.shape and torch.equal(u, v))
+                   for u, v in zip(lx, ly))
+
+    sa, sb = a["state"], b["state"]
+    return {"params": leaves_off(sa["params"], sb["params"]),
+            "opt": leaves_off(sa["opt"], sb["opt"]),
+            "step": int(not torch.equal(sa["step"], sb["step"])),
+            "iterator": int(a["iterator"].state_dict() != b["iterator"].state_dict())}
+
+
+def run_xla_lm(arch: str = "qwen1_5_0_5b", steps: int = 50, batch: int = 8, seq: int = 64, *,
+               reduced: bool = False, optimizer: str = "adamw", lr: float = 3e-3,
+               grad_sync: str = "auto", microbatches: int = 1,
+               ckpt_dir: str = "artifacts/train_cli_ckpt", ckpt_every: int = 25,
+               crash_at: int | None = None, offload_report: bool = False,
+               offload_clusters: int = 16, queue_depth: int = 4,
+               metrics: str | None = None, device=None, iterator=None) -> dict:
+    """The JAX CLI's ``--backend xla`` run: train a model-zoo LM under the
+    :class:`~repro_torch.runtime.supervisor.Supervisor`.
+
+    The config of :mod:`repro_torch.configs` (``reduced`` for the
+    smoke-scale one), ``ParallelCtx(attn_backend="xla")``, the named
+    optimizer, the synthetic corpus of 2,000,000 tokens (seed 0) and a
+    :class:`~repro_torch.data.pipeline.DataIterator` (seed 0; ``iterator``
+    replaces it) feed ``steps`` steps of :func:`make_train_step`,
+    checkpointed to ``ckpt_dir`` every ``ckpt_every`` steps; ``crash_at``
+    injects one crash before that step (restored from the latest
+    checkpoint). Prints what the JAX CLI prints. Returns the report, the
+    final state and iterator, each step's metrics and host wall seconds,
+    and the offload report when asked for.
+    """
+    import time
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data.pipeline import DataIterator, InMemoryDataset
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.runtime.supervisor import FailureInjector, Supervisor
+
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if reduced:
+        cfg = reduce_config(cfg)
+    if cfg.input_mode == "embeddings":
+        raise SystemExit("CLI driver trains token-input archs; use examples/ for stubs")
+    ctx = ParallelCtx(attn_backend="xla")
+    opt = get_optimizer(optimizer, lr)
+    if iterator is None:
+        ds = InMemoryDataset.synthetic(2_000_000, cfg.vocab_size, seq, seed=0)
+        iterator = DataIterator(ds, batch_size=batch, seed=0)
+
+    res: dict = {"metrics": [], "walls": [], "state": None}
+
+    def init_state(_mesh):
+        return init_train_state(0, cfg, opt, grad_sync, device=dev)
+
+    def make_step(_mesh):
+        step = make_train_step(cfg, ctx, opt, grad_sync=grad_sync,
+                               num_microbatches=microbatches)
+
+        def run(state, batch_):
+            t = time.perf_counter()
+            state, m = step(state, batch_)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            res["walls"].append(time.perf_counter() - t)
+            res["metrics"].append(m)
+            res["state"] = state
+            return state, m
+
+        return run
+
+    offload = None
+    if offload_report:
+        offload = offload_step_report(cfg, seq, batch, n_clusters=offload_clusters,
+                                      queue_depth=queue_depth)
+        print("offload step accounting (modeled NTX runtime):")
+        for key, v in offload.items():
+            if key == "layers":
+                print("  per-layer fwd+bwd offloads (lowered programs):")
+                for lname, info in v.items():
+                    offs = info["offloads"]
+                    print(f"    {lname}: fwd={offs['fwd']} dw={offs['dw']} "
+                          f"dx={offs['dx']} total={info['fwd_bwd_offloads']} "
+                          f"timed_cycles={info['fwd_bwd_cycles_timed']} "
+                          f"ns/ntx={info['ns_over_ntx_cycles']:.2f}x")
+            else:
+                print(f"  {key}: {v:.4g}" if isinstance(v, float) else f"  {key}: {v}")
+
+    injector = FailureInjector({crash_at: "crash"} if crash_at else {})
+    t0 = time.time()
+
+    def cb(step, m):
+        if step % 10 == 0:
+            print(f"step {step:5d} ce={float(m['ce']):.4f} ({time.time() - t0:.0f}s)",
+                  flush=True)
+
+    registry = obs.CounterRegistry() if metrics else None
+    sup = Supervisor(make_step, init_state, iterator, ckpt_dir, ckpt_every=ckpt_every,
+                     injector=injector, registry=registry, metrics_path=metrics)
+    report = sup.run(steps, metrics_cb=cb)
+    print(f"done: {report.steps_run} steps, {report.restarts} restarts")
+    if metrics:
+        print(f"per-step metrics JSONL: {metrics}")
+    if offload is not None and report.steps_run:
+        measured = (time.time() - t0) / report.steps_run
+        print(f"offload model: {offload['step_time_s']*1e3:.2f} ms/step modeled "
+              f"on {offload_clusters} clusters vs {measured*1e3:.2f} ms/step "
+              f"measured on {dev.type}")
+    res.update(report=report, iterator=iterator, offload=offload, cfg=cfg, ctx=ctx)
+    return res
+
+
 def _cli(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--backend", default="ntx", choices=["ntx"],
-                    help="ntx: train the paper's small CNN — or, with --model, a "
-                         "decoder-only transformer — through the torch executor "
-                         "(the only backend of the port so far)")
+    ap.add_argument("--backend", default="ntx", choices=["ntx", "xla"],
+                    help="ntx (the default): train the paper's small CNN — or, with "
+                         "--model, a decoder-only transformer — through the torch "
+                         "executor; xla: train the model-zoo LM named by --arch under "
+                         "the supervisor (the JAX CLI's default route: blockwise "
+                         "attention and SSD, autograd)")
+    ap.add_argument("--arch", default="qwen1_5_0_5b", help="xla: the model-zoo config")
+    ap.add_argument("--optimizer", default="adamw", choices=["sgd", "adamw"],
+                    help="xla: the optimizer")
+    ap.add_argument("--grad-sync", default="auto", choices=["auto", "systolic", "compressed"],
+                    help="xla: gradient exchange; on one device every value takes the "
+                         "one-device step, as in the JAX CLI")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="xla: gradient accumulation over this many microbatches")
+    ap.add_argument("--ckpt-dir", default="artifacts/train_cli_ckpt",
+                    help="xla: the supervisor's checkpoint directory")
+    ap.add_argument("--ckpt-every", type=int, default=25, help="xla: checkpoint cadence")
+    ap.add_argument("--crash-at", type=int, default=None,
+                    help="xla: inject one crash before this step (restored from the "
+                         "latest checkpoint)")
+    ap.add_argument("--offload-report", action="store_true",
+                    help="xla: print the modeled NTX offload accounting for one train "
+                         "step and compare it with the measured step time at the end")
+    ap.add_argument("--offload-clusters", type=int, default=16,
+                    help="xla: clusters of the offload report")
+    ap.add_argument("--queue-depth", type=int, default=4,
+                    help="xla: command-queue depth of the offload report")
     ap.add_argument("--model", default=None, metavar="ARCH",
                     help="instead of the CNN, train a decoder-only transformer built "
                          "from this config (e.g. qwen1_5_0_5b) by "
                          "NetworkGraph.from_model_config; the full config unless "
                          "--reduced")
     ap.add_argument("--reduced", action="store_true",
-                    help="--model: the smoke-scale config")
-    ap.add_argument("--seq", type=int, default=64, help="--model: sequence length")
+                    help="--model and xla: the smoke-scale config")
+    ap.add_argument("--seq", type=int, default=64, help="--model and xla: sequence length")
     ap.add_argument("--lr", type=float, default=LM_LR,
-                    help="--model: SGD learning rate (the CNN keeps its own 0.05)")
+                    help="--model: SGD learning rate; xla: the optimizer's (the CNN "
+                         "keeps its own 0.05)")
     ap.add_argument("--check-grads", action="store_true",
                     help="--model: after training, run one step and hold every "
                          "parameter gradient against torch.autograd of a plain "
@@ -514,11 +937,21 @@ def _cli(argv=None):
                     help="cuda (the default) needs a GPU; cpu runs the plain "
                          "PyTorch versions of the kernels")
     ap.add_argument("--metrics", default=None, metavar="OUT.jsonl",
-                    help="write one JSON record per step (loss, wall, counters)")
+                    help="write one JSON record per step (loss, wall, counters; both "
+                         "backends)")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="write the merged chrome trace (host spans, modeled "
                          "cluster lanes)")
     args = ap.parse_args(argv)
+    if args.backend == "xla":
+        return run_xla_lm(args.arch, args.steps, args.batch, args.seq, reduced=args.reduced,
+                          optimizer=args.optimizer, lr=args.lr, grad_sync=args.grad_sync,
+                          microbatches=args.microbatches, ckpt_dir=args.ckpt_dir,
+                          ckpt_every=args.ckpt_every, crash_at=args.crash_at,
+                          offload_report=args.offload_report,
+                          offload_clusters=args.offload_clusters,
+                          queue_depth=args.queue_depth, metrics=args.metrics,
+                          device=args.device)
     if args.model is not None and args.chaos is not None:
         raise SystemExit("--chaos is CNN-path only, as in the JAX CLI (ROADMAP A6c "
                          "ported the CNN run's faults); drop it or drop --model")

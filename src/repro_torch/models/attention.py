@@ -6,7 +6,8 @@ q/k RMSNorm), RoPE, and attention through
 kernel on the card, its plain version on the CPU — then the output
 projection. GQA is native: k and v keep their ``n_kv_heads`` and are never
 repeated. bf16 rounds where the JAX block rounds: after every projection and
-bias add, after the q/k norms and after RoPE. The mesh branch of the JAX
+bias add, after the q/k norms and after RoPE. ``backend="xla"`` takes the
+blockwise route, which autograd goes through (the training step). The mesh branch of the JAX
 block has no counterpart (the port has no mesh); the decode step and its KV
 cache come with the decode slice.
 """
@@ -60,11 +61,17 @@ def _project_qkv(x, params, cfg, positions):
     return q, k, v
 
 
-def attention_block(x: torch.Tensor, params, cfg, *, window: int | None = None) -> torch.Tensor:
-    """Training/prefill self-attention (causal). x: (B, S, D) -> (B, S, D)."""
+def attention_block(x: torch.Tensor, params, cfg, *, window: int | None = None,
+                    backend: str = "auto", block_kv: int = 512) -> torch.Tensor:
+    """Training/prefill self-attention (causal). x: (B, S, D) -> (B, S, D).
+
+    ``backend`` and ``block_kv`` go to :func:`repro_torch.kernels.ops.attention`
+    (KV blocks of ``min(block_kv, S)``).
+    """
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(x, params, cfg, positions)
-    o = ops.attention(q, k, v, causal=True, window=window)
+    o = ops.attention(q, k, v, causal=True, window=window, backend=backend,
+                      block_kv=min(block_kv, s))
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
     return _dot(o, params["wo"])

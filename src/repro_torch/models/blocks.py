@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.ops import widen
+
 
 class ParamTree(nn.Module):
     """Named parameters and sub-modules, read as ``p["name"]``.
@@ -31,6 +33,18 @@ class ParamTree(nn.Module):
 
     def __getitem__(self, key: str):
         return getattr(self, key)
+
+
+def param_pytree(tree: nn.Module):
+    """A :class:`ParamTree`'s parameters as the JAX-style pytree that the
+    training step and the optimizers take: nested dicts (for ``ParamTree``)
+    and lists (for ``nn.ModuleList``) of plain tensors that share the
+    parameters' storage. ``lm.forward`` reads either form."""
+    if isinstance(tree, nn.ModuleList):
+        return [param_pytree(m) for m in tree]
+    out = {k: p.detach() for k, p in tree._parameters.items()}
+    out.update({k: param_pytree(m) for k, m in tree._modules.items()})
+    return out
 
 
 def normal(shape, std: float, gen, device, dtype) -> torch.Tensor:
@@ -61,10 +75,10 @@ def init_rmsnorm(d: int, device, dtype=torch.float32) -> ParamTree:
 
 
 def rms_norm(x: torch.Tensor, params, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    xf = widen(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + params["scale"].float())).to(x.dtype)
+    return (y * (1.0 + widen(params["scale"]))).to(x.dtype)
 
 
 def init_layernorm(d: int, device, dtype=torch.float32) -> ParamTree:
@@ -73,7 +87,7 @@ def init_layernorm(d: int, device, dtype=torch.float32) -> ParamTree:
 
 
 def layer_norm(x: torch.Tensor, params, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    xf = widen(x)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps)
@@ -104,7 +118,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     freqs = rope_frequencies(d, theta, x.device)  # (d/2,)
     angles = positions[..., :, None].float() * freqs  # (..., S, d/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    x1, x2 = torch.chunk(widen(x), 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
@@ -129,11 +143,11 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 def mlp(x: torch.Tensor, params, act: str) -> torch.Tensor:
     if act == "swiglu":
-        h = F.silu(_dot(x, params["w_gate"]).float()).to(x.dtype)
+        h = F.silu(widen(_dot(x, params["w_gate"]))).to(x.dtype)
         h = h * _dot(x, params["w_up"])
     elif act == "geglu":
-        h = _gelu(_dot(x, params["w_gate"]).float()).to(x.dtype)
+        h = _gelu(widen(_dot(x, params["w_gate"]))).to(x.dtype)
         h = h * _dot(x, params["w_up"])
     else:
-        h = _gelu(_dot(x, params["w_up"]).float()).to(x.dtype)
+        h = _gelu(widen(_dot(x, params["w_up"]))).to(x.dtype)
     return _dot(h, params["w_down"])

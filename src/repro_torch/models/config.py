@@ -72,10 +72,20 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class ParallelCtx:
-    """How a forward pass is executed on one device.
+    """How a forward/backward pass is executed on one device.
 
-    ``ssd_chunk`` is the chunk length of the SSD scan (``min(ssd_chunk, S)``
-    is used, and must divide the sequence length).
+    ``attn_backend`` is the backend of :func:`repro_torch.kernels.ops.attention`
+    and :func:`~repro_torch.kernels.ops.ssd`: ``"auto"`` the kernel route
+    (the kernel on the card, its plain version on the CPU), ``"xla"`` the
+    blockwise / chunked route, which autograd goes through (the training
+    step's). ``block_kv`` is the KV block of the blockwise route (``min(block_kv,
+    S)``); ``ssd_chunk`` the chunk length of the SSD scan (``min(ssd_chunk,
+    S)`` is used, and must divide the sequence length). ``mesh`` and
+    ``dp_axes`` are JAX's; the port runs with ``mesh=None``.
     """
 
+    mesh: Any = None
+    dp_axes: tuple[str, ...] = ()
+    attn_backend: str = "auto"
+    block_kv: int = 512
     ssd_chunk: int = 128

@@ -2,15 +2,16 @@
 
 Inputs are token ids (B, S) — or (B, S, n_codebooks) — or precomputed
 embeddings (B, S, D) for the stub frontends. :func:`prefill` is the
-full-prompt forward; losses, the decode step and the cache come with
-later slices.
+full-prompt forward; :func:`lm_loss` the training loss (fp32 logits and
+cross-entropy) that autograd differentiates. The decode step and the cache
+come with a later slice.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ops import resolve_device, strict_fp32
+from repro_torch.kernels.ops import resolve_device, strict_fp32, widen
 from repro_torch.models import transformer as tfm
 from repro_torch.models.blocks import ParamTree, apply_norm, init_norm, normal
 from repro_torch.models.config import ModelConfig, ParallelCtx
@@ -57,7 +58,7 @@ def logits_from_hidden(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
     fp32 matmul (TF32 off) sums the same products.
     """
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]  # (D, CB*V)
-    logits = torch.matmul(x.float(), w.float())
+    logits = torch.matmul(widen(x), widen(w))
     if cfg.n_codebooks > 1:
         logits = logits.reshape(x.shape[:-1] + (cfg.n_codebooks, cfg.vocab_size))
     return logits
@@ -87,3 +88,25 @@ def prefill(params, inputs: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx) ->
     """Prefill forward: logits (B, S, V) fp32 for every prompt position."""
     logits, _ = forward(params, inputs, cfg, ctx)
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 0.0) -> torch.Tensor:
+    """Mean CE over all positions (and codebooks when present), fp32.
+
+    logits: (..., V) fp32; labels: (...) integer ids.
+    """
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ce = torch.mean(lse - ll)
+    if z_loss:
+        ce = ce + z_loss * torch.mean(lse**2)
+    return ce
+
+
+def lm_loss(params, batch: dict, cfg: ModelConfig, ctx: ParallelCtx, aux_weight: float = 0.01):
+    """batch: {"inputs": ids/embeddings, "labels": ids}. Returns (loss, metrics)."""
+    logits, aux = forward(params, batch["inputs"], cfg, ctx)
+    ce = cross_entropy(logits, batch["labels"])
+    loss = ce + aux_weight * aux["load_balance"] + 1e-3 * aux["router_z"]
+    metrics = {"loss": loss, "ce": ce, **aux}
+    return loss, metrics

@@ -4,7 +4,8 @@ Follows the Mamba-2 architecture (arXiv:2405.21060): input projections for
 (z, x, B, C, dt); a short depthwise causal conv over x, B and C; the SSD
 scan with scalar-per-head decay A; a D skip; gated RMSNorm; out projection.
 The scan runs through :func:`repro_torch.kernels.ops.ssd`: the
-hand-written kernel on the card, its plain version on the CPU.
+hand-written kernel on the card, its plain version on the CPU, or with
+``backend="xla"`` the chunked route that autograd goes through.
 
 bf16 rounds where the JAX block rounds: after every projection, after the
 conv's silu, the dt scale cast before the product, the D-skip term,
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ops import widen
 from repro_torch.models.blocks import ParamTree, _dot, init_rmsnorm, normal, rms_norm
 
 _CONV_W = 4
@@ -85,14 +87,16 @@ def _project(x, params):
 def _causal_conv1d(x, w, b):
     """Depthwise causal conv along S of (B, S, C), fp32 sum, silu, x's dtype."""
     s = x.shape[1]
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    out = torch.zeros(x.shape, dtype=torch.promote_types(x.dtype, torch.float32),
+                      device=x.device)
     for k in range(w.shape[0]):
         shifted = F.pad(x, (0, 0, k, 0))[:, :s]
-        out = out + shifted.float() * w[k].float()
-    return F.silu(out + b.float()).to(x.dtype)
+        out = out + widen(shifted) * widen(w[k])
+    return F.silu(out + widen(b)).to(x.dtype)
 
 
-def ssm_block(x: torch.Tensor, params, cfg, *, chunk: int = 128) -> torch.Tensor:
+def ssm_block(x: torch.Tensor, params, cfg, *, backend: str = "auto",
+              chunk: int = 128) -> torch.Tensor:
     """Full-sequence Mamba-2 block. x: (B, S, D) -> (B, S, D)."""
     bsz, s, _ = x.shape
     d_inner, g, n = _dims(cfg)
@@ -103,7 +107,7 @@ def ssm_block(x: torch.Tensor, params, cfg, *, chunk: int = 128) -> torch.Tensor
     b = _causal_conv1d(b, params["conv_wb"], params["conv_bb"])
     c = _causal_conv1d(c, params["conv_wc"], params["conv_bc"])
 
-    dt = F.softplus(dt.float() + params["dt_bias"])  # (B, S, H)
+    dt = F.softplus(widen(dt) + params["dt_bias"])  # (B, S, H)
     a = -torch.exp(params["a_log"])  # (H,)
     la = (dt * a).transpose(1, 2)  # (B, H, S) log-decay <= 0
 
@@ -112,10 +116,10 @@ def ssm_block(x: torch.Tensor, params, cfg, *, chunk: int = 128) -> torch.Tensor
     bg = b.reshape(bsz, s, g, n).transpose(1, 2)  # (B, G, S, N)
     cg = c.reshape(bsz, s, g, n).transpose(1, 2)
 
-    y = ops.ssd(xh, la, bg, cg, chunk=min(chunk, s))  # (B, H, S, P)
+    y = ops.ssd(xh, la, bg, cg, chunk=min(chunk, s), backend=backend)  # (B, H, S, P)
     y = y + params["d_skip"][None, :, None, None].to(xh.dtype) * xh
     y = y.transpose(1, 2).reshape(bsz, s, d_inner)
 
-    y = y * F.silu(z.float()).to(y.dtype)  # gated
+    y = y * F.silu(widen(z)).to(y.dtype)  # gated
     y = rms_norm(y, params["norm"], cfg.norm_eps)
     return _dot(y, params["w_out"])

@@ -30,7 +30,8 @@ def _check_kind(kind) -> None:
     mixer, ffn = kind
     if mixer not in MIXERS or ffn not in FFNS:
         raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet (ROADMAP A7: MoE and RG-LRU layers); "
+            f"layer kind {kind!r} is not ported yet (ROADMAP A7: models/moe.py and "
+            f"models/rglru.py); "
             f"ported mixers {MIXERS}, FFNs {FFNS}"
         )
 
@@ -59,10 +60,12 @@ def apply_layer(x, p, cfg: ModelConfig, kind, ctx: ParallelCtx):
     mixer, ffn = kind
     h = apply_norm(x, p["norm1"], cfg.norm_type, cfg.norm_eps)
     if mixer == "ssm":
-        h = ssm_mod.ssm_block(h, p["ssm"], cfg, chunk=ctx.ssd_chunk)
+        h = ssm_mod.ssm_block(h, p["ssm"], cfg, backend=ctx.attn_backend,
+                              chunk=ctx.ssd_chunk)
     else:
         window = cfg.window if mixer == "swa" else None
-        h = attn_mod.attention_block(h, p["attn"], cfg, window=window)
+        h = attn_mod.attention_block(h, p["attn"], cfg, window=window,
+                                     backend=ctx.attn_backend, block_kv=ctx.block_kv)
     x = x + h
     if ffn is not None:
         h = apply_norm(x, p["norm2"], cfg.norm_type, cfg.norm_eps)

@@ -22,12 +22,16 @@ scheduling and the mesh's links — the NTX cycle model that
   retry, the modeled recovery cost (:func:`~repro_torch.runtime.faults.time_recovery`)
   and the :class:`~repro_torch.runtime.faults.ChaosController` that
   ``train_graph(chaos=)`` calls around every step.
+- :mod:`repro_torch.runtime.supervisor` — the fault-tolerant training loop
+  of the model-zoo trainer (``--backend xla``): checkpoint/restart from the
+  latest complete checkpoint with the data iterator's state, elastic
+  fallback meshes, straggler deadlines and bounded retry.
 
-Everything here but the controller is host arithmetic: it takes no device
-and computes no tensor. The JAX package's supervisor is not ported yet.
+Everything here but the controller and the supervisor is host arithmetic:
+it takes no device and computes no tensor.
 """
 
-from repro_torch.runtime import cmdqueue, dma, faults, mesh, scheduler  # noqa: F401
+from repro_torch.runtime import cmdqueue, dma, faults, mesh, scheduler, supervisor  # noqa: F401
 from repro_torch.runtime.faults import (
     ChaosAction,
     ChaosController,
@@ -36,6 +40,14 @@ from repro_torch.runtime.faults import (
     RecoveryTiming,
     RetryPolicy,
     time_recovery,
+)
+from repro_torch.runtime.supervisor import (
+    FailureInjector,
+    SimulatedFailure,
+    SimulatedStraggler,
+    StragglerPolicy,
+    Supervisor,
+    SupervisorReport,
 )
 from repro_torch.runtime.mesh import (
     CUBE_POWER_MESH,
@@ -61,4 +73,6 @@ __all__ = [
     "LinkSchedule", "LinkTransfer", "MeshInterconnect", "MeshStepTiming",
     "MeshStepTiming2D", "ScheduledTransfer", "expected_update_time", "time_mesh_step",
     "time_mesh_step_2d",
+    "FailureInjector", "SimulatedFailure", "SimulatedStraggler", "StragglerPolicy",
+    "Supervisor", "SupervisorReport",
 ]

@@ -67,7 +67,10 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.obs.trace", "repro_torch.lower.mesh",
                 "repro_torch.runtime.mesh", "repro_torch.parallel",
                 "repro_torch.parallel.sharding", "repro_torch.runtime.faults",
-                "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint"):
+                "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
+                "repro_torch.optim", "repro_torch.optim.optimizers", "repro_torch.data",
+                "repro_torch.data.pipeline", "repro_torch.runtime.supervisor",
+                "repro_torch.models.flops"):
         assert mod in res["modules"]
 
 

@@ -1680,3 +1680,80 @@ def test_run_torch_tiny_lm_on_the_card_matches_the_cpu(cuda_device):
         for k in want:
             torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-4, atol=1e-5,
                                        msg=f"{k} fuse={fuse}")
+
+
+# -- the model-zoo trainer (--backend xla): no hand-written kernel; plain
+# PyTorch and autograd on the card against the same on the CPU -------------
+
+
+def _xla_step(arch, device, params=None):
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data.pipeline import DataIterator, InMemoryDataset
+    from repro_torch.launch import train
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.optim import optimizers as opt
+
+    cfg = reduce_config(get_config(arch))
+    ctx = ParallelCtx(attn_backend="xla", block_kv=16, ssd_chunk=16)
+    if params is None:
+        params = train.init_train_state(0, cfg, opt.sgd(0.05), device="cpu")["params"]
+    params = opt.tree_map(lambda p: p.to(device), params)
+    state = {"params": params, "opt": opt.sgd(0.05).init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    batch = next(DataIterator(InMemoryDataset.synthetic(100_000, cfg.vocab_size, 32), 4))
+    new, m = train.make_train_step(cfg, ctx, opt.sgd(0.05))(state, batch)
+    return params, new, m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "mamba2_780m"])
+def test_xla_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
+    from repro_torch.optim import optimizers as opt
+
+    params, want, wm = _xla_step(arch, torch.device("cpu"))
+    _, got, gm = _xla_step(arch, cuda_device, params)
+    for k in ("loss", "ce", "grad_norm"):
+        np.testing.assert_allclose(float(gm[k]), float(wm[k]), rtol=1e-4)
+    for g, w in zip(opt.tree_leaves(got["params"]), opt.tree_leaves(want["params"])):
+        assert g.is_cuda and g.dtype == w.dtype
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_xla_crash_restore_is_exact_on_the_card(cuda_device, tmp_path):
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data.pipeline import DataIterator, InMemoryDataset
+    from repro_torch.launch import train
+
+    kw = dict(reduced=True, steps=5, batch=2, seq=16, ckpt_every=2, device="cuda")
+    ref = train.run_xla_lm(ckpt_dir=str(tmp_path / "a"), **kw)
+    got = train.run_xla_lm(ckpt_dir=str(tmp_path / "b"), crash_at=3, **kw)
+
+    class OffByOne(DataIterator):
+        def load_state_dict(self, state):
+            super().load_state_dict(dict(state, step=int(state["step"]) + 1))
+
+    ds = InMemoryDataset.synthetic(2_000_000, reduce_config(get_config("qwen1_5_0_5b")).vocab_size,
+                                   16, seed=0)
+    bad = train.run_xla_lm(ckpt_dir=str(tmp_path / "c"), crash_at=3,
+                           iterator=OffByOne(ds, 2), **kw)
+    assert ref["state"]["params"]["embed"].is_cuda
+    assert not any(train.state_diff(got, ref).values())
+    assert train.state_diff(bad, ref)["params"] > 0
+
+
+@pytest.mark.cuda
+def test_first_step_gate_on_the_card(cuda_device):
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data.pipeline import DataIterator, InMemoryDataset
+    from repro_torch.launch import train
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.optim import optimizers as opt
+
+    cfg = reduce_config(get_config("qwen1_5_0_5b")).with_(dtype=torch.bfloat16)
+    st = train.init_train_state(0, cfg, opt.adamw(3e-3), device="cuda")
+    batch = next(DataIterator(InMemoryDataset.synthetic(100_000, cfg.vocab_size, 64), 8))
+    ctx = ParallelCtx(attn_backend="xla")
+    assert train.first_step_passes(train.first_step_readings(cfg, st["params"], batch, ctx))
+    assert not train.first_step_passes(train.first_step_readings(
+        cfg, st["params"], batch, ctx, control=train.fp8_rounded))
