@@ -82,7 +82,20 @@ main path, drives the main paths and checks that each went through its kernels:
   autograd, AdamW in plain PyTorch); every kernel counter reads 0 after the
   run. Gate A holds step 0 against fp64 (fp8 control), gate B a crash at
   step 3 bit for bit against the uncrashed run (off-by-one restore
-  control), gate C the falling ce.
+  control), gate C the falling ce. Then Mamba-2 780M at full width, three
+  steps: every gradient finite (ROADMAP C7), gate A on its bf16 step with
+  the leaves held to 1.25x JAX's own readings at 48 layers (control: the
+  fp64 step from e4m3 weights) and on the same weights in fp32, ce
+  falling;
+* decode and serving (phase "serve"): ``repro_torch.launch.serve.greedy_decode``
+  of Qwen1.5-0.5B and Mamba-2 780M at full width and depth, batch 4, a
+  64-token prompt and 64 new tokens in bf16 (no kernel on the decode step;
+  every counter 0), the 128 tokens teacher-forced through ``serve_step``
+  and held against ``lm.prefill`` of the same tokens on the kernel route:
+  fp32 every row within 1e-4 of max|logits| with B3's or B4's launches
+  counted (controls: positions one late, a bf16 cache), bf16 in relative
+  RMS with a limit per model (control: an e4m3 cache); the warm decode
+  step by CUDA events and by device time, launches, tokens/s, peak memory.
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` JSON line, and ``{"ok": true, "device": {...}}``.
@@ -192,10 +205,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, iters: int = 10) -> dict[str, float]:
-    """Device time of ``fn`` per call in ms, by kernel name, under
-    torch.profiler over ``iters`` warm calls; empty where the profiler sees
-    no device time."""
+def kernel_profile(fn, iters: int = 10) -> tuple[dict[str, float], float]:
+    """Device time of ``fn`` per call in ms, by kernel name, and the device
+    kernels it launches per call, under torch.profiler over ``iters`` warm
+    calls; empty and 0 where the profiler sees no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -206,8 +219,15 @@ def kernel_ms(fn, iters: int = 10) -> dict[str, float]:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return ({e.key: e.self_device_time_total / 1e3 / iters for e in rows},
+            sum(e.count for e in rows) / iters)
+
+
+def kernel_ms(fn, iters: int = 10) -> dict[str, float]:
+    """:func:`kernel_profile`'s device time by kernel name."""
+    return kernel_profile(fn, iters)[0]
 
 
 def device_ms(fn, iters: int = 10) -> float:
@@ -3847,6 +3867,330 @@ def train_lm_path(device, info):
         assert ctl_diff["params"] > 0 and ctl_diff["iterator"], ctl_diff
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    train_mamba(device, smi)
+
+
+TRAIN_MAMBA = {"arch": "mamba2_780m", "steps": 3, "batch": 8, "seq": 64, "lr": 3e-3}
+
+
+def train_mamba(device, smi: str):
+    """ROADMAP C7 at full width: Mamba-2 780M (48 layers, bf16) through the
+    same trainer, batch 8, seq 64 (one 64-token chunk of the chunked SSD
+    route), three AdamW steps, no checkpoints. Step 0's gradients must all
+    be finite (the route masks each decay before its exponential) and the
+    ce of step 0's batch must fall over the steps (each step's own batch
+    reads 11.10, 11.15, 11.12 at lr 3e-3: the batches differ more than
+    three steps move them).
+
+    Gate A holds the bf16 step 0 against fp64 at ``train.DEPTH_48_LIMITS``:
+    48 layers carry bf16 rounding to leaf readings that JAX's own bf16 step
+    shares (ROADMAP C8), so the leaf limits are JAX's readings at 48 layers
+    times ``train.DEPTH_FACTOR``; the step from weights rounded through
+    amax-scaled e4m3 must fail them. Beside it the route itself: the same
+    weights widened to fp32 at ``train.FIRST_STEP_LIMITS``, where the fp64
+    gradients rounded through e4m3 must fail."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataIterator, InMemoryDataset
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.optim import get_optimizer, tree_items, tree_map
+
+    t = TRAIN_MAMBA
+    cfg = get_config(t["arch"])
+    assert cfg.n_layers == 48 and cfg.dtype == torch.bfloat16, cfg
+    ctx = ParallelCtx(attn_backend="xla")
+    opt = get_optimizer("adamw", t["lr"])
+    t0 = time.perf_counter()
+    state = train.init_train_state(0, cfg, opt, device=device)
+    ds = InMemoryDataset.synthetic(2_000_000, cfg.vocab_size, t["seq"], seed=0)
+    it = DataIterator(ds, t["batch"], seed=0)
+    batches = [train.batch_to(next(it), device) for _ in range(t["steps"])]
+    grads, _ = train._grads_and_metrics(state["params"], batches[0], cfg, ctx, 1)
+    leaves = list(tree_items(grads))
+    bad = [n for n, g in leaves if not bool(torch.isfinite(g).all())]
+    del grads
+    lim16 = train.DEPTH_48_LIMITS
+    r16 = train.first_step_readings(cfg, state["params"], batches[0], ctx)
+    ctl16 = train.first_step_readings(cfg, state["params"], batches[0], ctx,
+                                      weights_control=train.fp8_rounded)
+    p32 = tree_map(lambda p: p.float(), state["params"])
+    cfg32 = cfg.with_(dtype=torch.float32)
+    r32 = train.first_step_readings(cfg32, p32, batches[0], ctx)
+    ctl32 = train.first_step_readings(cfg32, p32, batches[0], ctx, control=train.fp8_rounded)
+    del p32
+
+    def line(x):
+        return (f"ce rel {x['ce_rel']:.3e}, grad norm rel {x['grad_norm_rel']:.3e}, worst leaf "
+                f"{x['leaf_rel_rms']:.4f} ({x['worst_leaf']}), p10 leaf "
+                f"{x['p10_leaf_rel_rms']:.4f}")
+
+    print(f"train_lm {t['arch']} (C7): bf16 step 0, {len(leaves)} gradient leaves, non-finite "
+          f"{len(bad)} {bad[:4]}")
+    print(f"  gate A, the bf16 step at 48 layers: {line(r16)}; limits "
+          f"{ {k: round(v, 4) for k, v in lim16.items()} }; control (the fp64 step from "
+          f"weights through scaled e4m3): {line(ctl16)}, "
+          f"{'passes' if train.first_step_passes(ctl16, lim16) else 'rejected'}")
+    print(f"  gate A, the same weights in fp32: {line(r32)}; limits {train.FIRST_STEP_LIMITS}; "
+          f"control (fp64 grads through scaled e4m3): p10 leaf "
+          f"{ctl32['p10_leaf_rel_rms']:.4f}, "
+          f"{'passes' if train.first_step_passes(ctl32) else 'rejected'}")
+    assert not bad, f"non-finite gradients: {bad}"
+    assert train.first_step_passes(r16, lim16), r16
+    assert not train.first_step_passes(ctl16, lim16), "the e4m3 weights passed gate A"
+    assert train.first_step_passes(r32), r32
+    assert not train.first_step_passes(ctl32), "the fp8 control passed gate A in fp32"
+    step = train.make_train_step(cfg, ctx, opt)
+    ce, walls = [], []
+    for b in batches:
+        w0 = time.perf_counter()
+        state, m = step(state, b)
+        ce.append(float(m["ce"]))
+        walls.append((time.perf_counter() - w0) * 1e3)
+    with torch.no_grad():  # the ce of step 0's batch again, after the steps
+        ce_after = float(lm.lm_loss(state["params"], batches[0], cfg, ctx)[1]["ce"])
+    print(f"train_lm {t['arch']} [{smi}]: {t['steps']} steps, batch {t['batch']}, seq "
+          f"{t['seq']}: ce {ce} (each step's own batch), step 0's batch after the steps "
+          f"{ce_after:.4f}; last grad norm {float(m['grad_norm']):.4f} (clipped to 1); step "
+          f"walls {[round(w, 1) for w in walls]} ms, the first cold; "
+          f"{time.perf_counter() - t0:.1f} s in all")
+    assert all(math.isfinite(c) for c in ce), ce
+    assert ce_after < ce[0], f"ce on step 0's batch did not fall: {ce[0]} -> {ce_after}"
+    del state, batches
+    torch.cuda.empty_cache()
+
+
+SERVE = {"batch": 4, "prompt": 64, "new": 64}  # examples/serve_lm.py's batch; max_len 128
+SERVE_ARCHS = {"qwen1_5_0_5b": 151_936, "mamba2_780m": 50_280}  # ids below the vocab
+# Gate S1 (fp32): every row of decode logits within PREFILL_TOL["float32"]
+# of the prefill's max|logits|. Gate S2 (bf16): the relative RMS over all
+# logits of the bf16 decode against the bf16 kernel prefill, at most the
+# model's limit here. Each limit lies between that model's reading and
+# its e4m3 control's on an H100 at SERVE's shapes (PERF.md §2): Qwen1.5-0.5B
+# 0.0165 and 0.0729, Mamba-2 780M 0.0818 and 0.2295. Depth carries bf16
+# rounding some 5x further through Mamba-2's 48 layers than through
+# Qwen's 24, in JAX's bf16 forward as in the port's (ROADMAP C8), so one
+# limit cannot serve both.
+DECODE_BF16_RMS = {"qwen1_5_0_5b": 0.035, "mamba2_780m": 0.14}
+
+
+def worst_row(got, want) -> float:
+    """Gate S1's reading: the largest max|got - want| of a row of logits (one
+    position of one sequence), over max|want|."""
+    err = (got.double() - want.double()).abs().flatten(2).amax(-1)
+    return float(err.max()) / float(want.abs().max())
+
+
+def rel_rms(got, want) -> float:
+    """Gate S2's reading: ``||got - want|| / ||want||`` over all logits, in fp64."""
+    import torch
+
+    return float(torch.linalg.vector_norm(got.double() - want.double())
+                 / torch.linalg.vector_norm(want.double()))
+
+
+def layer_caches(cache: dict) -> list[dict]:
+    """Every layer's cache dict, in layer order of the pattern units then the rest."""
+    return [c for unit in cache["units"] for c in unit] + list(cache["rem"])
+
+
+def shifted_positions(step):
+    """Control of S1: every position one late. Attention layers take RoPE
+    and the cache slot at ``pos + 1`` (give the cache one more position),
+    so slot 0 stays empty and in view; each SSM layer's conv history moves
+    one tap back before the step."""
+    import torch
+
+    def run(params, cache, token, pos: int):
+        for c in layer_caches(cache):
+            if "conv" in c:
+                c["conv"] = torch.cat([torch.zeros_like(c["conv"][:, :1]), c["conv"][:, :-1]],
+                                      dim=1)
+        return step(params, cache, token, pos + 1)
+
+    return run
+
+
+def rounded_cache(step, rounding):
+    """Control of S1 and S2: after each step every layer's KV cache and SSM
+    state go through ``rounding`` (say, to bf16 and back: a cache of lower
+    precision)."""
+    def run(params, cache, token, pos: int):
+        logits, cache = step(params, cache, token, pos)
+        for c in layer_caches(cache):
+            for key in ("k", "v", "ssm"):
+                if key in c:
+                    c[key] = rounding(c[key])
+        return logits, cache
+
+    return run
+
+
+def _decode_events(step, events: list):
+    """``step`` with each call bracketed by CUDA events (no synchronisation)."""
+    import torch
+
+    def timed(params, cache, token, pos):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step(params, cache, token, pos)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    return timed
+
+
+def serve_model(smoke: Smoke, device, arch: str, smi: str):
+    """Decode and serving of one model at full width and depth (``init_lm(seed=0)``).
+
+    1. ``greedy_decode`` in bf16: a seeded prompt of ``SERVE["prompt"]``
+       tokens, then ``SERVE["new"]`` tokens; every kernel counter (reset just before) reads 0 after
+       it: no kernel is on the decode step, as none is on JAX's.
+    2. Gate S1 in fp32 (the same weights widened): all the tokens of 1 teacher-forced through ``serve_step`` against
+       ``lm.prefill`` on the kernel route (B3 for attention, B4 for the SSD,
+       chunk 128; its launches counted, 0 plain calls): every row of logits
+       within ``PREFILL_TOL["float32"]`` of max|logits| (:func:`worst_row`).
+       Controls it must reject: positions one late
+       (:func:`shifted_positions`), the cache rounded to bf16 after each step.
+    3. Gate S2 in bf16: the same tokens, bf16 decode against the bf16 kernel
+       prefill, relative RMS over all logits (:func:`rel_rms`), at most
+       ``DECODE_BF16_RMS[arch]``; the cache stored as amax-scaled float8
+       e4m3 must fail it.
+    4. The warm decode step: CUDA events around each of the new tokens' steps
+       of 1 (median), device time by torch.profiler, the idle share,
+       tokens/s, peak memory, the top device operations.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (conv2d, flash_attention, fused, ntx_exec, ntx_matmul,
+                                     ssd_scan, streaming)
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import fp8_rounded
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.models.lm import init_lm, prefill, serve_step
+
+    cfg = get_config(arch)
+    batch, prompt, new = SERVE["batch"], SERVE["prompt"], SERVE["new"]
+    ctx = ParallelCtx()
+    counters = (conv2d.COUNTER, flash_attention.COUNTER, fused.COUNTER, ntx_exec.COUNTER,
+                ntx_matmul.COUNTER, ssd_scan.COUNTER, streaming.COUNTER)
+    mod = ssd_scan if cfg.pattern[0][0] == "ssm" else flash_attention
+    n_layers = cfg.n_layers
+    seq = prompt + new
+    params = init_lm(cfg, seed=0, device=device)
+    n_params = sum(p.numel() for p in params.parameters())
+    prompt_ids = torch.as_tensor(np.random.RandomState(0).randint(0, SERVE_ARCHS[arch],
+                                                                  (batch, prompt)),
+                                 device=device)
+    print(f"  {arch}: {n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{n_params:,} parameters ({cfg.dtype}); batch {batch}, prompt {prompt}, "
+          f"{new} new tokens")
+
+    # 1. greedy decode, bf16
+    events: list = []
+    timed = _decode_events(serve.make_serve_step(cfg, ctx), events)
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = serve.greedy_decode(params, cfg, ctx, prompt_ids, new, step=timed, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launched = {c.name: (c.launches, c.plain_calls) for c in counters}
+    assert all(v == (0, 0) for v in launched.values()), launched
+    assert out.shape == (batch, new) and out.dtype == torch.int32
+    assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
+    step_ms = [e0.elapsed_time(e1) for e0, e1 in events]
+    assert len(step_ms) == seq
+    med = sorted(step_ms[prompt:])[new // 2]
+    tokens = torch.cat([prompt_ids, out.to(prompt_ids.dtype)], dim=1)  # (B, prompt + new)
+    print(f"  greedy_decode [{smi}]: {seq} steps in {wall:.3f} s (first step "
+          f"{step_ms[0]:.3f} ms); kernel launches 0, plain calls 0; distinct new tokens "
+          f"{int(out.unique().numel())}")
+
+    # 3. gate S2 and 4. timing, bf16
+    pre16 = prefill(params, tokens, cfg, ctx)
+    dec16, cache = serve.teacher_force(params, cfg, ctx, tokens, device=device)
+    e4m3 = rounded_cache(serve.make_serve_step(cfg, ctx), fp8_rounded)
+    ctl16, _ = serve.teacher_force(params, cfg, ctx, tokens, step=e4m3, device=device)
+    last = tokens[:, seq - 1]
+    with torch.inference_mode():
+        kern, n_launch = kernel_profile(lambda: serve_step(params, cache, last, seq - 1, cfg,
+                                                           ctx), iters=10)
+    dev = sum(kern.values())
+    del cache
+    print(f"  warm decode step [{smi}]: {med:.4f} ms by events (median of {new}; range "
+          f"{min(step_ms[prompt:]):.4f}-{max(step_ms[prompt:]):.4f}), {dev:.4f} ms device "
+          f"in {n_launch:.0f} kernel launches ({100 * (1 - dev / med):.1f} % idle), "
+          f"{batch / med * 1e3:,.0f} tokens/s; peak {peak / 1e9:.3f} GB in greedy_decode")
+    for name, k in sorted(kern.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {k:9.4f} ms  {name[:100]} [{smi}]")
+
+    # 2. gate S1, fp32
+    params.to(torch.float32)  # in place: the same weights, widened
+    cfg32 = cfg.with_(dtype=torch.float32)
+    dec32, _ = serve.teacher_force(params, cfg32, ctx, tokens, device=device)
+    for c in counters:
+        c.reset()
+    pre32 = prefill(params, tokens, cfg32, ctx)
+    torch.cuda.synchronize()
+    counts = (mod.COUNTER.launches, mod.COUNTER.plain_calls)
+    entries = dict(mod.COUNTER.entries)
+    others = {c.name: c.launches + c.plain_calls for c in counters if c is not mod.COUNTER}
+    if mod is ssd_scan:
+        per_call = {ssd_scan.entry(torch.float32, cfg.ssm_headdim, cfg.ssm_state,
+                                   min(ctx.ssd_chunk, seq)): 1}
+    else:
+        per_call = flash_attention.launches_of(torch.float32, seq, seq, cfg.head_dim)
+    want = {e: n_layers * k for e, k in per_call.items()}
+    print(f"  fp32 prefill of the {seq} tokens: {mod.COUNTER.name} launches / plain calls "
+          f"{counts}, by entry {entries}")
+    assert counts == (sum(want.values()), 0) and entries == want, (counts, entries, want)
+    assert not any(others.values()), others
+    s1 = worst_row(dec32, pre32)
+    ctl = {}
+    shifted = shifted_positions(serve.make_serve_step(cfg32, ctx))
+    ctl["positions one late"] = worst_row(serve.teacher_force(
+        params, cfg32, ctx, tokens, step=shifted, max_len=seq + 1, device=device)[0], pre32)
+    bf16_cache = rounded_cache(serve.make_serve_step(cfg32, ctx),
+                               lambda t: t.to(torch.bfloat16).to(t.dtype))
+    ctl["cache in bf16"] = worst_row(serve.teacher_force(
+        params, cfg32, ctx, tokens, step=bf16_cache, device=device)[0], pre32)
+    tol = PREFILL_TOL["float32"]
+    print(f"  gate S1 (fp32 decode vs fp32 kernel prefill, worst row of max|logits| "
+          f"{float(pre32.abs().max()):.4f}): {s1:.3e} (limit {tol:.0e}); controls: "
+          + ", ".join(f"{k} {v:.3e} ({'rejected' if v > tol else 'passes'})"
+                      for k, v in ctl.items()))
+    s2, s2_ctl = rel_rms(dec16, pre16), rel_rms(ctl16, pre16)
+    lim = DECODE_BF16_RMS[arch]
+    print(f"  gate S2 (bf16 decode vs bf16 kernel prefill, rel RMS over all logits): "
+          f"{s2:.5f} (limit {lim}); control, cache and state as amax-scaled e4m3: "
+          f"{s2_ctl:.5f}, {'rejected' if s2_ctl > lim else 'passes'}")
+    del params, dec32, pre32, dec16, pre16, ctl16
+    torch.cuda.empty_cache()
+    assert s1 <= tol, f"gate S1: {s1:.3e}"
+    assert all(v > tol for v in ctl.values()), f"gate S1 let a control through: {ctl}"
+    assert s2 <= lim, f"gate S2: {s2:.5f}"
+    assert s2_ctl > lim, f"gate S2 let the e4m3 control through: {s2_ctl:.5f}"
+    smoke.kernels[mod.COUNTER.name]["serve_gate_launches"] = {
+        f"{e} (fp32 prefill of {arch}'s {seq} decoded tokens)": n for e, n in want.items()}
+    return {"events_ms": med, "device_ms": dev, "launches": n_launch,
+            "tokens_s": batch / med * 1e3,
+            "peak_gb": peak / 1e9, "s1": s1, "s2": s2, "s2_control": s2_ctl, **ctl}
+
+
+def serve_path(smoke: Smoke, device, info):
+    """Phase "serve": :func:`serve_model` for Qwen1.5-0.5B and Mamba-2 780M."""
+    _, smi = info
+    for arch in SERVE_ARCHS:
+        serve_model(smoke, device, arch, smi)
 
 
 def main() -> int:
@@ -3887,6 +4231,10 @@ def main() -> int:
         smoke.phase("conv2d_ntx vs plain", check_conv2d, smoke, device)
         smoke.phase("C5: short fp32 sums on FFMA", check_c5, device)
         smoke.phase("train_lm", train_lm_path, device, info)
+        if {"flash_attention", "ssd_scan"} <= set(smoke.kernels):
+            smoke.phase("serve", serve_path, smoke, device, info)
+        else:
+            smoke.failures.append("serve (needs the ssd_scan and flash_attention phases)")
     if len(smoke.kernels) != 7 and "kernels" not in smoke.failures:
         smoke.failures.append("kernels")
     if smoke.failures:

@@ -211,8 +211,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
         raise NotImplementedError(
             "the flash-attention kernel serves the q_offset=0 full-cache case, as the "
             "JAX kernel route does; take backend='xla' (the blockwise route) for "
-            "q_offset / kv_valid_len. The decode step and its KV cache are not ported "
-            "yet (ROADMAP A7: decode and serving)"
+            "q_offset / kv_valid_len. The decode step attends to its KV cache densely "
+            "(models.attention.decode_attention_block)"
         )
     from repro_torch.kernels import flash_attention  # looked up at call time
 
@@ -223,8 +223,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
 def _ssd_chunked_xla(x, la, b, c, *, chunk: int, h0=None):
     """Chunked dual-form SSD, a loop over chunks
     (``repro/kernels/ops.py::_ssd_chunked_xla``). Everything is fp32 (fp64
-    for fp64 inputs); returns (y in x's dtype, the final state (B, H, P, N)
-    in fp32)."""
+    for fp64 inputs) but the cums, summed and differenced in fp64; returns
+    (y in x's dtype, the final state (B, H, P, N) in fp32).
+
+    Unlike the reference, each decay is masked before its exponential, so
+    the backward stays finite where a chunk's decay passes fp32's exp range
+    (the reference's is NaN there)."""
     bb, h, s, p = x.shape
     _, g, _, n = b.shape
     grp = h // g
@@ -244,21 +248,29 @@ def _ssd_chunked_xla(x, la, b, c, *, chunk: int, h0=None):
     ys = []
     for i in range(nc):
         xc, lac, bc, cc = xf[:, :, i], laf[:, :, i], bf[:, :, i], cf[:, :, i]
-        cum = torch.cumsum(lac, dim=-1)  # (B,H,Q) inclusive
-        total = cum[..., -1]  # (B,H)
+        # cums summed and differenced in fp64, each exponent rounded once, as
+        # the fp32 SSD kernel takes them: differences of fp32 cums cancel
+        # where la is large (and their backward, a reverse cumsum, too)
+        cum64 = torch.cumsum(lac.double(), dim=-1)  # (B,H,Q) inclusive
+        cumg64 = cum64.reshape(bb, g, grp, chunk)
+        total64 = cum64[..., -1].reshape(bb, g, grp)
+        cumg = cumg64.to(lac.dtype)
+        total = total64.to(lac.dtype)  # (B,G,grp)
         # intra (grouped to avoid repeating b/c across the head group)
-        cumg = cum.reshape(bb, g, grp, chunk)
         scores = torch.einsum("bgin,bgjn->bgij", cc, bc)  # (B,G,Q,Q)
-        decay = torch.exp(cumg[..., :, None] - cumg[..., None, :])  # (B,G,grp,Q,Q)
-        decay = torch.where(causal, decay, 0.0)
+        # masked before the exponential: for j > i the difference is
+        # -(la_{i+1} + ... + la_j) >= 0, whose exp overflows past ~88 and
+        # whose masked backward would then multiply 0 by inf
+        diff = (cumg64[..., :, None] - cumg64[..., None, :]).to(lac.dtype)  # (B,G,grp,Q,Q)
+        decay = torch.exp(torch.where(causal, diff, -torch.inf))
         xg = xc.reshape(bb, g, grp, chunk, p)
         y = torch.einsum("bgij,bgkij,bgkjp->bgkip", scores, decay, xg)
         # inter
         hg = hstate.reshape(bb, g, grp, p, n)
         y = y + torch.exp(cumg)[..., None] * torch.einsum("bgin,bgkpn->bgkip", cc, hg)
         # state update
-        w = torch.exp(total.reshape(bb, g, grp)[..., None] - cumg)[..., None] * bc[:, :, None]
-        hstate = torch.exp(total)[..., None, None] * hstate + torch.einsum(
+        w = torch.exp((total64[..., None] - cumg64).to(lac.dtype))[..., None] * bc[:, :, None]
+        hstate = torch.exp(total).reshape(bb, h)[..., None, None] * hstate + torch.einsum(
             "bgkip,bgkin->bgkpn", xg, w
         ).reshape(bb, h, p, n)
         ys.append(y.reshape(bb, h, chunk, p))

@@ -75,8 +75,9 @@ def attention_ref(
     """Dense softmax attention in fp32 (or ``compute_dtype``), GQA by
     repeating k and v; o rounded once to q's dtype.
 
-    Rows with no visible key give 0, as the flash kernel does. The decode
-    offsets of the JAX oracle come with the decode slice.
+    Rows with no visible key give 0, as the flash kernel does. The JAX
+    oracle's decode offsets are not copied: the decode step attends to its
+    cache densely (``models.attention._dense_decode_attention``).
     """
     hq, sq, d = q.shape[1:]
     skv = k.shape[2]

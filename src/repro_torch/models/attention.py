@@ -8,8 +8,14 @@ projection. GQA is native: k and v keep their ``n_kv_heads`` and are never
 repeated. bf16 rounds where the JAX block rounds: after every projection and
 bias add, after the q/k norms and after RoPE. ``backend="xla"`` takes the
 blockwise route, which autograd goes through (the training step). The mesh branch of the JAX
-block has no counterpart (the port has no mesh); the decode step and its KV
-cache come with the decode slice.
+block has no counterpart (the port has no mesh).
+
+The decode step (:func:`decode_attention_block`) projects one token with
+the prefill's ``_project_qkv``, writes its k and v into the layer's KV
+cache (:func:`init_kv_cache`) in place, at slot ``pos`` or, for a
+sliding-window layer, ``pos % window`` (a ring buffer), and attends to the
+cache densely in fp32 (:func:`_dense_decode_attention`). No kernel is on
+this step, as none is on JAX's.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ops import widen
 from repro_torch.models.blocks import ParamTree, _dot, apply_rope, init_rmsnorm, normal, rms_norm
 
 
@@ -75,3 +82,69 @@ def attention_block(x: torch.Tensor, params, cfg, *, window: int | None = None,
                       block_kv=min(block_kv, s))
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
     return _dot(o, params["wo"])
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, window: int | None,
+                  dtype=torch.bfloat16, device=None) -> dict:
+    """Cache for one attention layer. Sliding-window layers only keep the window."""
+    length = min(max_len, window) if window is not None else max_len
+    shape = (batch, cfg.n_kv_heads, length, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention_block(x: torch.Tensor, params, cfg, cache: dict, pos: int, *,
+                           window: int | None = None):
+    """One decode step: write the cache at ``pos`` and attend to the prefix.
+
+    x (B, 1, D); ``pos`` is the index of the token, a Python int. The
+    cache's k and v are updated in place (JAX donates them) and returned.
+    Sliding-window layers store the cache as a ring buffer of size
+    ``min(max_len, window)`` (slot ``pos % cache_len``). A ``pos`` past
+    a cache that does not hold the whole window raises (without a window,
+    or a ring shorter than the window, which would drop keys still in
+    view), where JAX's update would clamp or wrap it silently.
+    Returns (out (B, 1, D), cache).
+    """
+    b = x.shape[0]
+    cache_len = cache["k"].shape[2]
+    if pos < 0 or (pos >= cache_len and (window is None or cache_len < window)):
+        raise IndexError(f"decode position {pos} is outside the KV cache of length "
+                         f"{cache_len}")
+    positions = torch.full((1,), pos, device=x.device)
+    q, k, v = _project_qkv(x, params, cfg, positions)
+    slot = pos % cache_len if window is not None else pos
+    cache["k"][:, :, slot] = k[:, :, 0].to(cache["k"].dtype)
+    cache["v"][:, :, slot] = v[:, :, 0].to(cache["v"].dtype)
+
+    slots = torch.arange(cache_len, device=x.device)
+    if window is not None:
+        # ring buffer: the absolute position of slot j is pos - ((pos - j) mod cache_len)
+        kv_pos = pos - torch.remainder(pos - slots, cache_len)
+        valid = kv_pos >= max(0, pos - window + 1)
+    else:
+        valid = slots <= pos
+    o = _dense_decode_attention(q, cache["k"], cache["v"], valid)
+    o = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    return _dot(o, params["wo"]), cache
+
+
+def _dense_decode_attention(q, k, v, valid):
+    """Single-token attention over the whole cache: fp32 scores and values,
+    ``-1e30`` at invalid slots, p zeroed there, the output in q's dtype.
+
+    q (B, Hq, 1, Dh), k / v (B, Hkv, L, Dh), valid (L,) bool. GQA grouped:
+    k and v are never repeated.
+    """
+    b, hq, _, dh = q.shape
+    hkv = k.shape[1]
+    grp = hq // hkv
+    qf = widen(q).reshape(b, hkv, grp, dh)
+    s = torch.einsum("bkgd,bkjd->bkgj", qf, widen(k)) * (dh**-0.5)
+    s = torch.where(valid, s, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = torch.where(valid, p, 0.0)
+    o = torch.einsum("bkgj,bkjd->bkgd", p, widen(v))
+    o = o / p.sum(dim=-1, keepdim=True)
+    return o.reshape(b, hq, 1, dh).to(q.dtype)

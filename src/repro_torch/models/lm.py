@@ -3,8 +3,9 @@
 Inputs are token ids (B, S) — or (B, S, n_codebooks) — or precomputed
 embeddings (B, S, D) for the stub frontends. :func:`prefill` is the
 full-prompt forward; :func:`lm_loss` the training loss (fp32 logits and
-cross-entropy) that autograd differentiates. The decode step and the cache
-come with a later slice.
+cross-entropy) that autograd differentiates; :func:`init_cache` and
+:func:`serve_step` the decode step, one token against a per-layer KV /
+SSM-state cache.
 """
 
 from __future__ import annotations
@@ -110,3 +111,36 @@ def lm_loss(params, batch: dict, cfg: ModelConfig, ctx: ParallelCtx, aux_weight:
     loss = ce + aux_weight * aux["load_balance"] + 1e-3 * aux["router_z"]
     metrics = {"loss": loss, "ce": ce, **aux}
     return loss, metrics
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=None) -> dict:
+    """The decoder's per-layer caches (zeros) on ``device``: the CUDA
+    device unless ``"cpu"`` is asked."""
+    return tfm.init_decoder_cache(cfg, batch, max_len, dtype, resolve_device(device))
+
+
+def serve_step(params, cache: dict, token: torch.Tensor, pos: int, cfg: ModelConfig,
+               ctx: ParallelCtx):
+    """One decode step: token ids (B,), codebook ids (B, CB) or a stub
+    embedding (B, D); ``pos`` the token's position, a Python int.
+
+    Returns (logits (B, V) fp32 [or (B, CB, V)], cache). Attention caches
+    are updated in place (the counterpart of JAX's donated cache) and the
+    cache is returned all the same. On the card it first sets
+    :func:`strict_fp32`, as :func:`forward` does.
+    """
+    if token.is_cuda:
+        strict_fp32()
+    if token.dtype in (torch.int32, torch.int64) and cfg.n_codebooks == 1:
+        inp = token[:, None]
+    else:  # codebook ids or a stub embedding
+        inp = token[:, None, :]
+    x = embed_inputs(params, inp, cfg)
+    x, cache = tfm.decoder_step(x, params["decoder"], cfg, cache, pos, ctx)
+    x = apply_norm(x, params["final_norm"], cfg.norm_type, cfg.norm_eps)
+    return logits_from_hidden(params, x, cfg)[:, 0], cache

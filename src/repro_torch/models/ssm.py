@@ -10,7 +10,11 @@ hand-written kernel on the card, its plain version on the CPU, or with
 bf16 rounds where the JAX block rounds: after every projection, after the
 conv's silu, the dt scale cast before the product, the D-skip term,
 ``silu(z)`` in fp32 cast before the gate, and the norm's output.
-The decode step and its cache come with the decode slice.
+
+The decode step (:func:`ssm_block_step`) carries the last three conv
+inputs (in the model dtype) and the SSM state (fp32, (B, H, P, N)) in its
+cache (:func:`init_ssm_cache`) and costs O(1) a token; it rounds where the
+block does. No kernel is on this step, as none is on JAX's.
 """
 
 from __future__ import annotations
@@ -123,3 +127,55 @@ def ssm_block(x: torch.Tensor, params, cfg, *, backend: str = "auto",
     y = y * F.silu(widen(z)).to(y.dtype)  # gated
     y = rms_norm(y, params["norm"], cfg.norm_eps)
     return _dot(y, params["w_out"])
+
+
+def init_ssm_cache(cfg, batch: int, dtype=torch.bfloat16, device=None) -> dict:
+    """The conv window's last ``_CONV_W - 1`` inputs in ``dtype`` and the
+    SSM state in fp32."""
+    d_inner, g, n = _dims(cfg)
+    conv_dim = d_inner + 2 * g * n
+    return {
+        "conv": torch.zeros((batch, _CONV_W - 1, conv_dim), dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, cfg.n_heads, cfg.ssm_headdim, n), dtype=torch.float32,
+                           device=device),
+    }
+
+
+def _conv_step(win, w, bias, dtype):
+    """The causal conv at the window's last position: taps flipped to line
+    up with the window (oldest first), fp32 sum, silu, ``dtype``."""
+    out = (widen(win) * widen(torch.flip(w, dims=(0,)))[None]).sum(1)
+    return F.silu(out + widen(bias)).to(dtype)
+
+
+def ssm_block_step(x1: torch.Tensor, params, cfg, cache: dict):
+    """One decode step (O(1)). x1: (B, 1, D). Returns (y (B, 1, D), new cache)."""
+    bsz = x1.shape[0]
+    d_inner, g, n = _dims(cfg)
+    h, p = cfg.n_heads, cfg.ssm_headdim
+
+    z, xs, b, c, dt = _project(x1, params)
+    xbc = torch.cat([xs, b, c], dim=-1)  # (B, 1, conv_dim)
+    window = torch.cat([cache["conv"], xbc], dim=1)  # (B, W, conv_dim)
+    wx, wb, wc = torch.split(window, [d_inner, g * n, g * n], dim=-1)
+    xs = _conv_step(wx, params["conv_wx"], params["conv_bx"], x1.dtype)  # (B, d_inner)
+    b = _conv_step(wb, params["conv_wb"], params["conv_bb"], x1.dtype)
+    c = _conv_step(wc, params["conv_wc"], params["conv_bc"], x1.dtype)
+
+    dt = F.softplus(widen(dt[:, 0]) + params["dt_bias"])  # (B, H)
+    a = torch.exp(dt * -torch.exp(params["a_log"]))  # (B, H) decay
+    xh = xs.reshape(bsz, h, p) * dt[..., None].to(xs.dtype)  # (B, H, P) dt-scaled input
+    grp = h // g
+    # jnp.repeat along the group axis: each group's b and c serve its heads in turn
+    bh = b.reshape(bsz, g, n).repeat_interleave(grp, dim=1)  # (B, H, N)
+    ch = c.reshape(bsz, g, n).repeat_interleave(grp, dim=1)
+
+    state = cache["ssm"] * a[..., None, None] + (
+        widen(xh)[..., :, None] * widen(bh)[..., None, :]
+    )  # (B, H, P, N)
+    y = torch.einsum("bhpn,bhn->bhp", state, widen(ch)).to(x1.dtype)
+    y = y + params["d_skip"][None, :, None].to(x1.dtype) * xh
+    y = y.reshape(bsz, 1, d_inner)
+    y = y * F.silu(widen(z)).to(y.dtype)  # gated
+    y = rms_norm(y, params["norm"], cfg.norm_eps)
+    return _dot(y, params["w_out"]), {"conv": window[:, 1:], "ssm": state}

@@ -8,6 +8,11 @@ pattern position ``pos`` in unit ``u`` — and loops over them. Ported mixers:
 ``window=cfg.window``) and ``"ssm"`` (Mamba-2); ported FFNs: ``"mlp"`` and
 none. RG-LRU mixers and MoE FFNs raise, naming the ROADMAP item that ports
 them.
+
+Decode keeps one cache per layer in the same layout, ``units[pos][u]`` and
+``rem[i]`` (:func:`init_decoder_cache`), where JAX stacks each pattern
+position's caches along a leading axis; :func:`decoder_step` runs one token
+through the stack.
 """
 
 from __future__ import annotations
@@ -109,3 +114,62 @@ def decoder(x, params, cfg: ModelConfig, ctx: ParallelCtx):
     for i, p in enumerate(params["rem"]):
         x = apply_layer(x, p, cfg, cfg.pattern[i], ctx)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Decode (single token)
+# ---------------------------------------------------------------------------
+
+
+def init_layer_cache(cfg: ModelConfig, kind, batch: int, max_len: int, dtype=None,
+                     device=None) -> dict:
+    _check_kind(kind)
+    mixer, _ = kind
+    dtype = dtype or cfg.dtype
+    if mixer == "ssm":
+        return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
+    window = cfg.window if mixer == "swa" else None
+    return attn_mod.init_kv_cache(cfg, batch, max_len, window, dtype, device)
+
+
+def apply_layer_step(x, p, cfg: ModelConfig, kind, cache: dict, pos: int, ctx: ParallelCtx):
+    """One token through one layer. x: (B, 1, D). Returns (x, the layer's cache)."""
+    _check_kind(kind)
+    mixer, ffn = kind
+    h = apply_norm(x, p["norm1"], cfg.norm_type, cfg.norm_eps)
+    if mixer == "ssm":
+        h, cache = ssm_mod.ssm_block_step(h, p["ssm"], cfg, cache)
+    else:
+        window = cfg.window if mixer == "swa" else None
+        h, cache = attn_mod.decode_attention_block(h, p["attn"], cfg, cache, pos,
+                                                   window=window)
+    x = x + h
+    if ffn is not None:
+        h = apply_norm(x, p["norm2"], cfg.norm_type, cfg.norm_eps)
+        x = x + mlp(h, p["mlp"], cfg.mlp_act)
+    return x, cache
+
+
+def init_decoder_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+                       device=None) -> dict:
+    """``{"units": [[cache of layer (pos, u)] for pos], "rem": [cache]}``."""
+    n_units, rem = _unit_counts(cfg)
+    units = [[init_layer_cache(cfg, kind, batch, max_len, dtype, device) for _ in range(n_units)]
+             for kind in cfg.pattern]
+    rem_caches = [init_layer_cache(cfg, cfg.pattern[i], batch, max_len, dtype, device)
+                  for i in range(rem)]
+    return {"units": units, "rem": rem_caches}
+
+
+def decoder_step(x, params, cfg: ModelConfig, cache: dict, pos: int, ctx: ParallelCtx):
+    """One decode step through the whole stack. x: (B, 1, D). Returns (x, cache)."""
+    n_units, _ = _unit_counts(cfg)
+    units = [list(c) for c in cache["units"]]
+    for u in range(n_units):
+        for p_idx, kind in enumerate(cfg.pattern):
+            x, units[p_idx][u] = apply_layer_step(x, params["units"][p_idx][u], cfg, kind,
+                                                  units[p_idx][u], pos, ctx)
+    rem = list(cache["rem"])
+    for i, p in enumerate(params["rem"]):
+        x, rem[i] = apply_layer_step(x, p, cfg, cfg.pattern[i], rem[i], pos, ctx)
+    return x, {"units": units, "rem": rem}

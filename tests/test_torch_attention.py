@@ -119,9 +119,9 @@ def test_sm_scale_and_strided_operands():
 
 def test_decode_offsets_are_not_ported():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 2, 2, 1, 64, 16, seed=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match="decode_attention_block"):
         ops.attention(q, k, v, q_offset=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match="decode_attention_block"):
         ops.attention(q, k, v, kv_valid_len=6)
 
 

@@ -156,3 +156,35 @@ def test_ssd_auto_route_without_state_is_the_plain_kernel_version():
     np.testing.assert_allclose(auto.numpy(), xla.numpy(), **F32)
     y, h = ops.ssd(*t, chunk=16, return_state=True)  # return_state takes the chunked route
     assert torch.equal(y, xla) and h.shape == (2, 4, 16, 16)
+
+
+def _c7_inputs():
+    """ROADMAP C7's case: one 64-token chunk at la = -1.6, so the masked
+    decays exp(cum_i - cum_j), j > i, reach exp(100) and overflow fp32."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(1, 2, 64, 8).astype(np.float32)
+    b = rng.randn(1, 1, 64, 8).astype(np.float32)
+    c = rng.randn(1, 1, 64, 8).astype(np.float32)
+    return x, np.full((1, 2, 64), -1.6, np.float32), b, c
+
+
+def test_chunked_ssd_grads_stay_finite_past_the_exp_range():
+    """d la of the chunked route at la = -1.6 is finite and matches the same
+    route in fp64 (no overflow there) at rtol 1e-5 / atol 1e-6 · max. The
+    reference's unmasked form (JAX's route) gives NaN on these inputs: the
+    control that shows the case reaches the overflow."""
+    x, la, b, c = _c7_inputs()
+    grads = {}
+    for dt in (torch.float32, torch.float64):
+        tla = torch.from_numpy(la).to(dt).requires_grad_(True)
+        y = ops.ssd(*(torch.from_numpy(a).to(dt) for a in (x,)), tla,
+                    torch.from_numpy(b).to(dt), torch.from_numpy(c).to(dt),
+                    chunk=64, backend="xla")
+        grads[dt], = torch.autograd.grad(y.sum(), tla)
+    got, want = grads[torch.float32], grads[torch.float64]
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    _close(got, want.numpy(), F32)
+
+    jgrad = jax.grad(lambda la: jops.ssd(jnp.asarray(x), la, jnp.asarray(b), jnp.asarray(c),
+                                         chunk=64, backend="xla").sum())(jnp.asarray(la))
+    assert bool(jnp.isnan(jgrad).all())

@@ -70,7 +70,7 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
                 "repro_torch.optim", "repro_torch.optim.optimizers", "repro_torch.data",
                 "repro_torch.data.pipeline", "repro_torch.runtime.supervisor",
-                "repro_torch.models.flops"):
+                "repro_torch.models.flops", "repro_torch.launch.serve"):
         assert mod in res["modules"]
 
 

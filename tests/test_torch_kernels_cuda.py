@@ -1757,3 +1757,43 @@ def test_first_step_gate_on_the_card(cuda_device):
     assert train.first_step_passes(train.first_step_readings(cfg, st["params"], batch, ctx))
     assert not train.first_step_passes(train.first_step_readings(
         cfg, st["params"], batch, ctx, control=train.fp8_rounded))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "mamba2_780m"])
+def test_decode_matches_the_kernel_prefill_on_the_card(cuda_device, arch):
+    """Decode against prefill at the reduced config in fp32: every row of
+    the decode logits within 1e-4 of max|logits| of the prefill on the
+    kernel route (B3 or B4 launched, no plain call); positions one late
+    and a bf16 cache must fail it (chip_smoke.py's gate S1 and its controls)."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.launch import serve
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.models.lm import init_lm, prefill
+
+    cfg = reduce_config(get_config(arch))
+    ctx = ParallelCtx()
+    params = init_lm(cfg, seed=0, device=cuda_device)
+    tokens = torch.as_tensor(np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 32)),
+                             device=cuda_device)
+    mod = ssd_scan if arch == "mamba2_780m" else flash_attention
+    got, cache = serve.teacher_force(params, cfg, ctx, tokens, device=cuda_device)
+    assert cache["units"][0][0][next(iter(cache["units"][0][0]))].is_cuda
+    mod.COUNTER.reset()
+    want = prefill(params, tokens, cfg, ctx)
+    assert mod.COUNTER.launches == cfg.n_layers and mod.COUNTER.plain_calls == 0
+    tol = chip_smoke.PREFILL_TOL["float32"]
+    assert chip_smoke.worst_row(got, want) <= tol
+    step = serve.make_serve_step(cfg, ctx)
+    late, _ = serve.teacher_force(params, cfg, ctx, tokens,
+                                  step=chip_smoke.shifted_positions(step), max_len=33,
+                                  device=cuda_device)
+    rounded, _ = serve.teacher_force(
+        params, cfg, ctx, tokens, device=cuda_device,
+        step=chip_smoke.rounded_cache(step, lambda t: t.to(torch.bfloat16).to(t.dtype)))
+    assert chip_smoke.worst_row(late, want) > tol
+    assert chip_smoke.worst_row(rounded, want) > tol

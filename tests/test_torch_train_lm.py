@@ -315,6 +315,65 @@ def test_crash_and_restore_is_exact_and_the_off_by_one_control_is_not(tmp_path):
     assert float(ref["metrics"][-1]["ce"]) < float(ref["metrics"][0]["ce"])
 
 
+def depth_readings(n_layers: int) -> dict:
+    """The p10 leaf against the fp64 step, at ``n_layers`` (below), of the
+    port's bf16 step, JAX's, and the three controls; and JAX's
+    :func:`train.leaf_readings`."""
+    arch = "mamba2_780m"
+    jcfg = jax_reduce_config(jax_get_config(arch)).with_(dtype=jnp.bfloat16, n_layers=n_layers)
+    cfg = reduce_config(get_config(arch)).with_(dtype=torch.bfloat16, n_layers=n_layers)
+    jparams = jtrain.init_train_state(jax.random.PRNGKey(0), jcfg, jopt.sgd(0.1))["params"]
+    params = _port_params(jparams, cfg)
+    batch = _batch(cfg, 8, 64)
+    tbatch = train.batch_to(batch, "cpu")
+    ctx = ParallelCtx(attn_backend="xla", ssd_chunk=16)
+    jctx = JaxCtx(attn_backend="xla", ssd_chunk=16)
+    cfg64 = cfg.with_(dtype=torch.float64)
+    p64 = opt.tree_map(lambda p: p.double(), params)
+    g64 = train._grads_and_metrics(p64, tbatch, cfg64, ctx, 1)[0]
+    jgrads = jax.jit(lambda p, b: jtrain._grads_and_metrics(p, b, jcfg, jctx, 1)[0])(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    jgrads = _port_params(jax.tree.map(lambda a: np.asarray(a, np.float32), jgrads),
+                          cfg.with_(dtype=torch.float32))
+    p32 = opt.tree_map(lambda p: p.float(), params)
+    runs = {
+        "port": train._grads_and_metrics(params, tbatch, cfg, ctx, 1)[0],
+        "jax": jgrads,
+        "e4m3 grads": opt.tree_map(train.fp8_rounded, g64),
+        "e4m3 weights": train._grads_and_metrics(opt.tree_map(train.fp8_rounded, p64), tbatch,
+                                                 cfg64, ctx, 1)[0],
+        "fp32": train._grads_and_metrics(p32, tbatch, cfg.with_(dtype=torch.float32), ctx,
+                                         1)[0],
+    }
+    out = {k: train.leaf_readings(g, g64) for k, g in runs.items()}
+    return {"p10": {k: r["p10_leaf_rel_rms"] for k, r in out.items()}, "jax": out["jax"]}
+
+
+@pytest.mark.parametrize("n_layers", [12, 48])
+def test_bf16_step_grows_with_depth_as_jax_does(n_layers):
+    """ROADMAP C8: in bf16 the first step's gradients lie as far from fp64
+    as JAX's own bf16 step's do, at depth. Mamba-2 780M at its
+    ``reduce_config`` widths cut to ``n_layers``, batch 8, seq 64,
+    ssd_chunk 16 (JAX's unmasked 64-token chunk is NaN there, C7), the same
+    parameters and batch: the port's p10 leaf against the fp64 step within
+    ``DEPTH_FACTOR`` of JAX's, both ways (``python
+    tests/test_torch_train_lm.py`` prints the readings). Controls outside
+    that band: the fp64 gradients through amax-scaled e4m3 (rounded once,
+    at the end), the fp64 step from weights through e4m3, the step on the
+    same weights in fp32. At 48 layers JAX's readings are
+    ``JAX_BF16_48_LAYERS``, from which chip_smoke.py's gate on the
+    full-width step takes its limits."""
+    r = depth_readings(n_layers)
+    ratio = {k: v / r["p10"]["jax"] for k, v in r["p10"].items()}
+    band = (1 / train.DEPTH_FACTOR, train.DEPTH_FACTOR)
+    assert band[0] <= ratio["port"] <= band[1], r["p10"]
+    for k in ("e4m3 grads", "e4m3 weights", "fp32"):
+        assert not band[0] <= ratio[k] <= band[1], (k, r["p10"])
+    if n_layers == 48:
+        for k, v in train.JAX_BF16_48_LAYERS.items():
+            np.testing.assert_allclose(r["jax"][k], v, rtol=0.05)
+
+
 def test_first_step_gate_reads_under_its_limits_and_rejects_its_control():
     for arch in ARCHS:
         cfg = reduce_config(get_config(arch)).with_(dtype=torch.bfloat16)
@@ -331,3 +390,13 @@ def test_first_step_gate_reads_under_its_limits_and_rejects_its_control():
         lim = train.FIRST_STEP_LIMITS
         assert ctl["p10_leaf_rel_rms"] > lim["p10_leaf_rel_rms"]
         assert all(ctl[k] <= lim[k] for k in lim if k != "p10_leaf_rel_rms"), ctl
+        # the deep gate's control: the step from weights through e4m3
+        assert not train.first_step_passes(train.first_step_readings(
+            cfg, st["params"], batch, ctx, weights_control=train.fp8_rounded))
+
+
+if __name__ == "__main__":
+    for n in (12, 48):
+        r = depth_readings(n)
+        print(f"{n} layers, p10 leaf vs fp64:", {k: round(v, 4) for k, v in r["p10"].items()},
+              f"JAX's worst leaf {r['jax']['leaf_rel_rms']:.4f}")
